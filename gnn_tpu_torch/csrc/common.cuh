@@ -1,0 +1,62 @@
+// Shared helpers for the CSR kernels: vector loads and stores that widen
+// to float32 for accumulation, and the warp-per-row launch geometry.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gnn {
+
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = 8;
+// Edges whose feature loads a warp keeps in flight at once. A power-law hub
+// row is one warp's serial walk; without this it pays one full load latency
+// per edge.
+constexpr int kUnroll = 8;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Four consecutive features: one 16-byte load for float32 (needs 16-byte
+// alignment), one 8-byte load for bfloat16 (needs 8-byte alignment).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<unsigned*>(&a);
+  raw.y = *reinterpret_cast<unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
+  acc.x = fmaf(w, v.x, acc.x);
+  acc.y = fmaf(w, v.y, acc.y);
+  acc.z = fmaf(w, v.z, acc.z);
+  acc.w = fmaf(w, v.w, acc.w);
+}
+
+inline unsigned blocks_for_rows(int n_rows) {
+  return static_cast<unsigned>((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+
+}  // namespace gnn

@@ -1,0 +1,36 @@
+"""Graph data, host-side prep and the CSR adjacency the kernels read."""
+
+from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
+from gnn_tpu_torch.graphs.data import Data
+from gnn_tpu_torch.graphs.datasets import load_dataset
+from gnn_tpu_torch.graphs.generate import (
+    cora_like,
+    karate_club,
+    power_law,
+    stochastic_block_model,
+)
+from gnn_tpu_torch.graphs.transforms import (
+    add_remaining_self_loops,
+    coalesce,
+    degree,
+    gcn_norm,
+    remove_self_loops,
+    to_undirected,
+)
+
+__all__ = [
+    "Adjacency",
+    "build_adjacency",
+    "Data",
+    "load_dataset",
+    "cora_like",
+    "karate_club",
+    "power_law",
+    "stochastic_block_model",
+    "add_remaining_self_loops",
+    "coalesce",
+    "degree",
+    "gcn_norm",
+    "remove_self_loops",
+    "to_undirected",
+]

@@ -1,0 +1,142 @@
+"""Graph data container.
+
+Port of ``gnn_tpu/graphs/data.py::Data``: node features ``x`` [N, F], COO
+``edge_index`` [2, E], optional ``edge_attr``, labels ``y`` and the
+train/val/test masks, held as torch tensors. ``to(device)`` moves them;
+``to_adjacency`` runs the one-time host prep (exact ``gcn_norm`` and the CSR
+build) and returns an :class:`~gnn_tpu_torch.graphs.adjacency.Adjacency` on
+the CPU.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from gnn_tpu_torch.graphs import transforms
+from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
+
+__all__ = ["Data"]
+
+
+def _tensor(a, dtype=None) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+@dataclasses.dataclass(init=False)
+class Data:
+    x: Optional[torch.Tensor]  # [N, F] node features
+    edge_index: torch.Tensor  # [2, E] int64 COO
+    edge_attr: Optional[torch.Tensor]  # [E] or [E, D]
+    y: Optional[torch.Tensor]  # [N] int64 labels
+    train_mask: Optional[torch.Tensor]  # [N] bool
+    val_mask: Optional[torch.Tensor]
+    test_mask: Optional[torch.Tensor]
+    num_nodes: int
+
+    def __init__(
+        self,
+        x=None,
+        edge_index=None,
+        edge_attr=None,
+        y=None,
+        *,
+        num_nodes: Optional[int] = None,
+        train_mask=None,
+        val_mask=None,
+        test_mask=None,
+    ):
+        edge_index = _tensor(
+            np.zeros((2, 0), np.int64) if edge_index is None else edge_index
+        )
+        if edge_index.ndim != 2 or edge_index.shape[0] != 2:
+            raise ValueError(
+                f"edge_index must have shape [2, num_edges], got {tuple(edge_index.shape)}"
+            )
+        if edge_index.dtype.is_floating_point or edge_index.dtype == torch.bool:
+            raise ValueError(f"edge_index must be integer-typed, got {edge_index.dtype}")
+        if num_nodes is None:
+            if x is not None:
+                num_nodes = int(x.shape[0])
+            elif edge_index.numel():
+                num_nodes = int(edge_index.max()) + 1
+            else:
+                num_nodes = 0
+        if edge_index.numel():
+            lo, hi = int(edge_index.min()), int(edge_index.max())
+            if lo < 0 or hi >= num_nodes:
+                raise ValueError(
+                    f"edge_index references node {hi if hi >= num_nodes else lo} "
+                    f"but num_nodes={num_nodes}"
+                )
+        if x is not None and x.shape[0] != num_nodes:
+            raise ValueError(f"x has {x.shape[0]} rows but num_nodes={num_nodes}")
+        if edge_attr is not None and edge_attr.shape[0] != edge_index.shape[1]:
+            raise ValueError(
+                f"edge_attr has {edge_attr.shape[0]} entries for "
+                f"{edge_index.shape[1]} edges"
+            )
+        if y is not None and y.shape[0] not in (num_nodes, 1):
+            raise ValueError(f"y has {y.shape[0]} entries for {num_nodes} nodes")
+        for name, m in (
+            ("train_mask", train_mask),
+            ("val_mask", val_mask),
+            ("test_mask", test_mask),
+        ):
+            if m is not None and m.shape[0] != num_nodes:
+                raise ValueError(f"{name} has {m.shape[0]} entries for {num_nodes} nodes")
+        self.x = _tensor(x)
+        self.edge_index = edge_index.to(torch.int64)
+        self.edge_attr = _tensor(edge_attr)
+        self.y = _tensor(y, torch.int64)
+        self.train_mask = _tensor(train_mask, torch.bool)
+        self.val_mask = _tensor(val_mask, torch.bool)
+        self.test_mask = _tensor(test_mask, torch.bool)
+        self.num_nodes = int(num_nodes)
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.edge_index.shape[1])
+
+    @property
+    def num_features(self) -> int:
+        return 0 if self.x is None else int(self.x.shape[-1])
+
+    def to(self, device) -> "Data":
+        """A copy with every tensor on ``device``."""
+        out = copy.copy(self)
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                setattr(out, f.name, v.to(device))
+        return out
+
+    def to_adjacency(
+        self,
+        *,
+        add_self_loops: bool = True,
+        norm: Optional[str] = "sym",
+        improved: bool = False,
+        reorder=False,
+    ) -> Adjacency:
+        """One-time host prep: COO -> normalized CSR Adjacency (on the CPU;
+        move it with ``.to(device)``)."""
+        ei = self.edge_index.cpu().numpy()
+        ew = None if self.edge_attr is None else self.edge_attr.cpu().numpy()
+        if ew is not None and ew.ndim > 1:
+            ew = None  # vector-valued edge attrs are features, not weights
+        if norm in ("sym", "rw", "row"):
+            ei, ew = transforms.gcn_norm(
+                ei, ew, self.num_nodes,
+                self_loops=add_self_loops, improved=improved, norm=norm,
+            )
+        elif add_self_loops:
+            ei, ew = transforms.add_remaining_self_loops(ei, ew, num_nodes=self.num_nodes)
+        return build_adjacency(ei, ew, num_nodes=self.num_nodes, reorder=reorder)

@@ -1,0 +1,5 @@
+"""Models."""
+
+from gnn_tpu_torch.models.gcn import GCN
+
+__all__ = ["GCN"]

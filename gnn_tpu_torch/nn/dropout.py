@@ -1,0 +1,41 @@
+"""Inverted dropout with an explicit ``torch.Generator``.
+
+Port of ``gnn_tpu/nn/dropout.py``: a Bernoulli(1 - rate) keep mask scaled by
+1/(1 - rate), applied only in training mode (``module.train()``). The mask
+comes from the generator passed to ``forward`` (the default generator when
+None); its bits differ from ``jax.random``'s.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = ["Dropout", "dropout"]
+
+
+def dropout(
+    x: torch.Tensor,
+    rate: float,
+    *,
+    training: bool = True,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    if not training or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, *, generator: Optional[torch.Generator] = None):
+        return dropout(x, self.rate, training=self.training, generator=generator)

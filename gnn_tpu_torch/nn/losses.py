@@ -1,0 +1,43 @@
+"""Losses and metrics with optional boolean masks.
+
+Port of ``gnn_tpu/nn/losses.py::cross_entropy`` and ``accuracy``: both reduce
+over masked elements only, with the masked mean
+``sum(v * mask) / max(sum(mask), 1)`` of ``_masked_mean``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+__all__ = ["cross_entropy", "accuracy"]
+
+
+def _masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is None:
+        return values.mean()
+    mask = mask.to(values.dtype)
+    return (values * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def cross_entropy(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    label_smoothing: float = 0.0,
+) -> torch.Tensor:
+    """Softmax cross entropy with integer targets. logits [N, C], targets [N]."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    picked = log_probs.gather(-1, targets.long()[:, None])[:, 0]
+    if label_smoothing > 0.0:
+        picked = (1.0 - label_smoothing) * picked + label_smoothing * log_probs.mean(-1)
+    return _masked_mean(-picked, mask)
+
+
+def accuracy(
+    logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    correct = (logits.argmax(-1) == targets).float()
+    return _masked_mean(correct, mask)

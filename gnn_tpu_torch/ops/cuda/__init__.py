@@ -1,0 +1,19 @@
+"""Hand-written CUDA kernels for Hopper (``gnn_tpu_torch/csrc``), their
+wrappers, plain versions and launch counters.
+
+K1 :func:`csr_spmm` replaces ``gnn_tpu/ops/pallas/spmm.py::spmm_pallas``;
+K2 :func:`segment_sum_csr` replaces
+``gnn_tpu/ops/pallas/segment.py::segment_sum_sorted``. The kernels build at
+first launch (``_build.load``), never at import.
+"""
+
+from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
+from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain, spmm_csr
+
+__all__ = [
+    "csr_spmm",
+    "csr_spmm_plain",
+    "spmm_csr",
+    "segment_sum_csr",
+    "segment_sum_csr_plain",
+]

@@ -1,0 +1,111 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources in ``gnn_tpu_torch/csrc`` compile with ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build happens at first use, into ``build/gnn_tpu_torch/`` at the root of
+the checkout. The library's file name carries a hash of the sources and the
+flags, so an edited source builds anew and an unchanged one is reused.
+Nothing here runs at import time, and nothing falls back: a missing
+``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+__all__ = ["NVCC_FLAGS", "build_dir", "load", "build_info"]
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+_CSRC = _PKG / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+_info: dict = {}
+
+_VOID = ctypes.c_void_p
+_INT = ctypes.c_int
+_SIGNATURES = {
+    # row_ptr, col, w, x, out, n_rows, F, vec, stream
+    "gnn_csr_spmm_f32": [_VOID] * 5 + [_INT] * 3 + [_VOID],
+    "gnn_csr_spmm_bf16": [_VOID] * 5 + [_INT] * 3 + [_VOID],
+    # row_ptr, msg, out, n_rows, F, vec, stream
+    "gnn_segment_sum_f32": [_VOID] * 3 + [_INT] * 3 + [_VOID],
+    "gnn_segment_sum_bf16": [_VOID] * 3 + [_INT] * 3 + [_VOID],
+}
+
+
+def build_dir() -> pathlib.Path:
+    return _PKG.parent / "build" / "gnn_tpu_torch"
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _build() -> pathlib.Path:
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    out_dir = build_dir()
+    lib_path = out_dir / f"libgnn_tpu_torch_{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        _info.update(path=str(lib_path), built=False, seconds=0.0, log="")
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib_path)
+    lib_path.with_suffix(".log").write_text(log)
+    _info.update(path=str(lib_path), built=True, seconds=seconds, log=log)
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def build_info() -> dict:
+    """Path of the loaded library, whether this process built it, the build's
+    seconds and nvcc's output (register and spill counts from ptxas)."""
+    return dict(_info)

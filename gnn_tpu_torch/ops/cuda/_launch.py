@@ -1,0 +1,63 @@
+"""Argument checks and launch plumbing shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_FEATURE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# Bytes of one 4-feature vector load: the kernels take the vector path only
+# when every row starts on such a boundary.
+_VEC_BYTES = {torch.float32: 16, torch.bfloat16: 8}
+
+
+def check_index(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, got {t.dtype} {tuple(t.shape)}")
+
+
+def check_features(name: str, t: torch.Tensor) -> str:
+    """Returns the kernel suffix for t's dtype."""
+    if t.ndim != 2 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 2-D tensor, got {tuple(t.shape)}")
+    if t.dtype not in _FEATURE_DTYPES:
+        raise ValueError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return _FEATURE_DTYPES[t.dtype]
+
+
+def check_weight(w: Optional[torch.Tensor], num_edges: int, device: torch.device) -> None:
+    if w is None:
+        return
+    if w.device != device:
+        raise ValueError(f"weight is on {w.device}, expected {device}")
+    if w.dtype != torch.float32 or w.shape != (num_edges,) or not w.is_contiguous():
+        raise ValueError(f"weight must be a contiguous float32 [{num_edges}] tensor, got {w.dtype} {tuple(w.shape)}")
+
+
+def vector_path(*tensors: torch.Tensor) -> int:
+    """1 when every row of every tensor starts on a vector-load boundary."""
+    t0 = tensors[0]
+    align = _VEC_BYTES[t0.dtype]
+    ok = t0.shape[1] % 4 == 0 and all(t.data_ptr() % align == 0 for t in tensors)
+    return int(ok)
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on_error(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error {rc}")
+
+
+def row_ids(row_ptr: torch.Tensor, num_entries: int) -> torch.Tensor:
+    """The row of each CSR entry, int64 [E] (for the plain versions)."""
+    n_rows = row_ptr.numel() - 1
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(n_rows, device=row_ptr.device), counts, output_size=num_entries
+    )

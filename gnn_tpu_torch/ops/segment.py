@@ -1,0 +1,80 @@
+"""Segment reductions — the scatter side of message passing.
+
+Port of ``gnn_tpu/ops/segment.py``. ``segment_sum``/``mean``/``max``/``min``
+are plain torch reductions over explicit segment ids (what
+``MessagePassing.aggregate`` uses). :func:`segment_sum_edges` reduces
+per-edge values in an adjacency's dst-sorted order to per-destination sums
+through kernel K2, with the backward a gather by destination (as at
+``gnn_tpu/ops/segment.py:204-206``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr
+
+__all__ = [
+    "segment_sum",
+    "segment_mean",
+    "segment_max",
+    "segment_min",
+    "segment_sum_edges",
+]
+
+
+def _expand(ids: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    return ids.long().view((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    return out.index_add(0, segment_ids.long(), data)
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    totals = segment_sum(data, segment_ids, num_segments)
+    counts = segment_sum(
+        torch.ones(segment_ids.shape[0], dtype=data.dtype, device=data.device),
+        segment_ids,
+        num_segments,
+    ).clamp_min(1)
+    return totals / counts.view((-1,) + (1,) * (data.ndim - 1))
+
+
+def _segment_extreme(data, segment_ids, num_segments, reduce: str, fill: float):
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), fill)
+    return out.scatter_reduce(0, _expand(segment_ids, data), data, reduce=reduce)
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Empty segments come out -inf, as in JAX."""
+    return _segment_extreme(data, segment_ids, num_segments, "amax", float("-inf"))
+
+
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Empty segments come out +inf, as in JAX."""
+    return _segment_extreme(data, segment_ids, num_segments, "amin", float("inf"))
+
+
+class _SegmentSumEdges(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, row_ptr, dst):
+        ctx.save_for_backward(dst)
+        return segment_sum_csr(row_ptr, values)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return g.index_select(0, dst.long()), None, None
+
+
+def segment_sum_edges(values: torch.Tensor, adj) -> torch.Tensor:
+    """Per-edge values [E, ...] (dst-sorted order) -> per-destination sums
+    [N_dst, ...] through K2; differentiable in ``values``."""
+    shape = values.shape
+    if shape[0] != adj.num_edges:
+        raise ValueError(f"expected {adj.num_edges} edge values, got {shape[0]}")
+    flat = values.reshape(shape[0], -1).contiguous()
+    out = _SegmentSumEdges.apply(flat, adj.row_ptr, adj.dst)
+    return out.reshape((adj.num_dst_nodes,) + tuple(shape[1:]))

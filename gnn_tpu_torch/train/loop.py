@@ -1,0 +1,162 @@
+"""Full-graph training loop.
+
+Port of the single-device full-graph branch of ``gnn_tpu/train/loop.py::fit``:
+one-time prep (exact ``gcn_norm`` and the CSR adjacency, moved to the
+device), then per epoch dropout -> GCN -> masked cross entropy -> backward
+-> Adam, with evaluation, metrics and early stopping on validation accuracy.
+Sampled minibatches, multi-device partitions, host-resident features,
+checkpoints, relabelled layouts and the non-GCN models are not ported yet:
+their settings raise ``NotImplementedError`` (ROADMAP Queue 1).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from gnn_tpu_torch.graphs.adjacency import Adjacency
+from gnn_tpu_torch.graphs.data import Data
+from gnn_tpu_torch.models import GCN
+from gnn_tpu_torch.nn.losses import accuracy, cross_entropy
+from gnn_tpu_torch.optim import Adam, AdamW
+from gnn_tpu_torch.train.config import Config
+from gnn_tpu_torch.train.metrics import MetricLogger, Throughput
+
+__all__ = ["build_model", "build_optimizer", "fit", "evaluate"]
+
+_SPLITS = ("train", "val", "test")
+
+
+def build_model(
+    cfg: Config, in_features: int, num_classes: int, generator: Optional[torch.Generator] = None
+) -> nn.Module:
+    m = cfg.model
+    if m.name == "gcn":
+        return GCN(
+            in_features, m.hidden, num_classes,
+            num_layers=m.num_layers, dropout=m.dropout, generator=generator,
+        )
+    if m.name in ("sage", "gat", "gin", "encoder_gcn"):
+        raise NotImplementedError(
+            f"model '{m.name}' is not ported yet (ROADMAP Queue 1 items 5 and 11)"
+        )
+    raise ValueError(f"unknown model '{m.name}'")
+
+
+def build_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    o = cfg.optim
+    if o.grad_clip > 0:
+        raise NotImplementedError("optim.grad_clip is not ported yet (ROADMAP Queue 1 item 6)")
+    if o.name == "adam":
+        return Adam(params, lr=o.lr, weight_decay=o.weight_decay)
+    if o.name == "adamw":
+        return AdamW(params, lr=o.lr, weight_decay=o.weight_decay)
+    if o.name == "sgd":
+        raise NotImplementedError("optimizer 'sgd' is not ported yet (ROADMAP Queue 1 item 6)")
+    raise ValueError(f"unknown optimizer '{o.name}'")
+
+
+def _check_supported(cfg: Config) -> None:
+    t = cfg.train
+    unported = {
+        "train.batch_size > 0 (sampled minibatches, ROADMAP Queue 1 item 13)": t.batch_size > 0,
+        "dist.num_parts > 1 (multi-device partitions, ROADMAP Queue 1 item 15)": cfg.dist.num_parts > 1,
+        "train.host_features (ROADMAP Queue 1 item 13)": t.host_features,
+        "train.checkpoint_dir (checkpointing, ROADMAP Queue 1 item 7)": bool(t.checkpoint_dir),
+    }
+    for what, hit in unported.items():
+        if hit:
+            raise NotImplementedError(f"{what} is not ported yet")
+    reorder = str(t.reorder).lower()
+    if reorder in ("true", "cluster"):
+        raise NotImplementedError(
+            f"train.reorder='{t.reorder}' is not ported yet (ROADMAP Queue 1 "
+            "items 9 and 12); use 'auto' or 'false'"
+        )
+    if reorder not in ("auto", "false"):
+        raise ValueError(f"unknown train.reorder '{t.reorder}'")
+
+
+@torch.no_grad()
+def evaluate(model: nn.Module, data: Data, adj: Adjacency) -> dict:
+    """Accuracy per split, in inference mode (dropout off)."""
+    was_training = model.training
+    model.eval()
+    logits = model(data.x, adj)
+    model.train(was_training)
+    out = {}
+    for split in _SPLITS:
+        mask = getattr(data, f"{split}_mask")
+        if mask is not None:
+            out[f"{split}_acc"] = float(accuracy(logits, data.y, mask))
+    return out
+
+
+def fit(
+    cfg: Config,
+    data: Data,
+    *,
+    model: Optional[nn.Module] = None,
+    device="cuda",
+    verbose: bool = True,
+) -> Tuple[nn.Module, None, list]:
+    """Train per config on ``device``. Returns (trained model, None, history);
+    the middle slot is the JAX package's buffer state, which GCN has none of.
+
+    Each history entry holds the split accuracies, ``loss`` (of the epoch's
+    step), ``edges_per_s`` since the start, and ``step_ms``: the wall time
+    from the start of the epoch's step to its loss on the host (a sync).
+    """
+    _check_supported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("fit(device='cuda') needs a CUDA device; none is available")
+    if model is None:
+        model = build_model(
+            cfg, data.num_features, int(data.y.max()) + 1,
+            torch.Generator().manual_seed(cfg.train.seed),
+        )
+    model = model.to(device)
+    model.train()
+    adj = data.to_adjacency(norm="sym").to(device)
+    data = data.to(device)
+    opt = build_optimizer(cfg, model.parameters())
+    dropout_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
+    logger = MetricLogger(cfg.train.log_file, echo=verbose)
+
+    history = []
+    best_val, best_state, patience_left = -1.0, None, cfg.train.patience
+    thr = Throughput(data.num_edges)
+    thr.start()
+    for epoch in range(cfg.train.epochs):
+        t_step = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy(model(data.x, adj, generator=dropout_gen), data.y, data.train_mask)
+        loss.backward()
+        opt.step()
+        thr.step()
+        if (epoch + 1) % cfg.train.eval_every == 0 or epoch == cfg.train.epochs - 1:
+            loss_value = loss.item()  # syncs the device
+            step_ms = (time.perf_counter() - t_step) * 1e3
+            edges_per_s = thr.edges_per_s
+            metrics = evaluate(model, data, adj)
+            metrics.update(loss=loss_value, edges_per_s=edges_per_s, step_ms=step_ms)
+            logger.log(epoch + 1, **metrics)
+            history.append(metrics)
+            val = metrics.get("val_acc")
+            if cfg.train.patience and val is not None:
+                if val > best_val:
+                    best_val, patience_left = val, cfg.train.patience
+                    best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                else:
+                    patience_left -= 1
+                    if patience_left <= 0:
+                        break
+
+    if best_state is not None:
+        model.load_state_dict(best_state)
+    logger.close()
+    return model, None, history

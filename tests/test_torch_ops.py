@@ -1,0 +1,164 @@
+"""The port's sparse ops against the JAX package's kernels.
+
+On the CPU the kernel wrappers take their plain versions; those are held
+against the Pallas kernels run in interpret mode (``interpret=True``, exact
+float32 there) and against the XLA segment backend. Same float32 terms, only
+the summation order differs, and in-degrees stay below ~50, so rtol=atol=1e-5.
+The CUDA kernels themselves are compared with their plain versions on the
+card in ``tests/test_torch_cuda.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gnn_tpu import graphs as jg
+from gnn_tpu.ops import spmm as jax_spmm
+from gnn_tpu.ops.pallas.segment import build_chunk_plan, segment_sum_sorted
+from gnn_tpu.ops.pallas.spmm import spmm_pallas
+from gnn_tpu.ops.segment import segment_sum_edges as jax_segment_sum_edges
+from gnn_tpu_torch import graphs as tg
+from gnn_tpu_torch import ops as tops
+from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
+from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _graph(rng, n=800, e=6000):
+    """A random multigraph with self loops; the JAX adjacency gets its ELL
+    layouts and chunk plans (E >= 2048), which spmm_pallas needs."""
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]).astype(np.int64)
+    w = rng.normal(size=e).astype(np.float32)
+    return jg.build_adjacency(ei, jnp.asarray(w), num_nodes=n), tg.build_adjacency(ei, w, num_nodes=n)
+
+
+def _row_ptr(dst_sorted, n):
+    return torch.from_numpy(
+        np.concatenate([[0], np.cumsum(np.bincount(dst_sorted, minlength=n))]).astype(np.int32)
+    )
+
+
+@pytest.mark.parametrize("reference", ["pallas", "segment"])
+def test_spmm_matches_jax_forward_and_grads(rng, reference):
+    jadj, tadj = _graph(rng)
+    n = jadj.num_dst_nodes
+    x = rng.normal(size=(n, 64)).astype(np.float32)
+    ct = rng.normal(size=(n, 64)).astype(np.float32)
+
+    def jax_loss(x, weight):
+        adj = jadj.replace(weight=weight)
+        if reference == "pallas":
+            out = spmm_pallas(adj, x, interpret=True)
+        else:
+            out = jax_spmm(adj, x, backend="segment")
+        return jnp.sum(out * jnp.asarray(ct)), out
+
+    (_, j_out), (j_dx, j_dw) = jax.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jadj.weight
+    )
+
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = tadj.weight.clone().requires_grad_()
+    out = tops.spmm_edge_weighted(tadj, wt, xt)
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(j_dx), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(j_dw), **TOL)
+
+    # the constant-weight path (GCNConv's) gives the same forward and dx, no dw
+    xc = torch.from_numpy(x).requires_grad_()
+    out_c = tops.spmm(tadj, xc)
+    (out_c * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(out_c.detach().numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(xc.grad.numpy(), np.asarray(j_dx), **TOL)
+    assert tadj.weight.grad is None
+
+
+@pytest.mark.parametrize(
+    "E,N,F",
+    [(3001, 500, 40), (3000, 700, 128), (1000, 2000, 64)],
+    ids=["E%8!=0,F=40", "F=128", "empty_rows"],
+)
+def test_segment_sum_matches_pallas_kernel(rng, E, N, F):
+    dst = np.sort(rng.integers(0, N, E))
+    msg = rng.normal(size=(E, F)).astype(np.float32)
+    plan = build_chunk_plan(dst, N, chunk=256, rows=256)
+    want = np.asarray(
+        segment_sum_sorted(jnp.asarray(msg), plan, N, dst_sorted=jnp.asarray(dst), interpret=True)
+    )
+    got = segment_sum_csr(_row_ptr(dst, N), torch.from_numpy(msg))
+    assert got.shape == (N, F) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_plain_versions_accumulate_bf16_in_f32(rng):
+    """bf16 inputs: float32 sums of the bf16 values, one rounding at the end."""
+    n, e, F = 200, 3000, 16
+    dst = np.sort(rng.integers(0, n, e))
+    col = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=e).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32)).to(torch.bfloat16)
+    rp = _row_ptr(dst, n)
+    out = csr_spmm(rp, col, w, x)
+    assert out.dtype == torch.bfloat16
+    want = csr_spmm_plain(rp, col, w, x.float()).to(torch.bfloat16)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    msg = x.float().repeat(e // n, 1).to(torch.bfloat16)
+    seg = segment_sum_csr(rp, msg)
+    torch.testing.assert_close(seg, segment_sum_csr_plain(rp, msg.float()).to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_segment_sum_edges_matches_jax(rng):
+    jadj, tadj = _graph(rng, n=600, e=4000)
+    E, n = jadj.num_edges, jadj.num_dst_nodes
+    vals = rng.normal(size=(E, 2, 8)).astype(np.float32)
+    ct = rng.normal(size=(n, 2, 8)).astype(np.float32)
+
+    def jax_loss(v):
+        out = jax_segment_sum_edges(v, jadj, backend="pallas", interpret=True)
+        return jnp.sum(out * jnp.asarray(ct)), out
+
+    (_, j_out), j_grad = jax.value_and_grad(jax_loss, has_aux=True)(jnp.asarray(vals))
+    vt = torch.from_numpy(vals).requires_grad_()
+    out = tops.segment_sum_edges(vt, tadj)
+    (out * torch.from_numpy(ct)).sum().backward()
+    assert out.shape == (n, 2, 8)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(vt.grad.numpy(), np.asarray(j_grad), **TOL)
+
+
+@pytest.mark.parametrize("aggr", ["sum", "mean", "max", "min"])
+def test_message_passing_propagate_matches_jax(rng, aggr):
+    from gnn_tpu.mp import MessagePassing as JaxMessagePassing
+    from gnn_tpu_torch.mp import MessagePassing
+
+    n = 300
+    ei = np.stack([rng.integers(0, n, 1500), rng.integers(0, n // 2, 1500)]).astype(np.int64)
+    jadj = jg.build_adjacency(ei, num_nodes=n, layout="csr")
+    tadj = tg.build_adjacency(ei, num_nodes=n)
+    x = rng.normal(size=(n, 12)).astype(np.float32)
+    want = JaxMessagePassing(aggr=aggr).propagate(jadj, jnp.asarray(x))
+    got = MessagePassing(aggr=aggr).propagate(tadj, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_cpu_tensors_take_the_plain_version(rng):
+    jadj, tadj = _graph(rng, n=100, e=500)
+    before = (csr_spmm.launches, segment_sum_csr.launches)
+    x = torch.randn(100, 8)
+    torch.testing.assert_close(
+        csr_spmm(tadj.row_ptr, tadj.src, tadj.weight, x),
+        csr_spmm_plain(tadj.row_ptr, tadj.src, tadj.weight, x),
+        rtol=0, atol=0,
+    )
+    segment_sum_csr(tadj.row_ptr, torch.randn(500, 8))
+    assert (csr_spmm.launches, segment_sum_csr.launches) == before
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        csr_spmm(tadj.row_ptr, tadj.src, tadj.weight, x.to("meta"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.spmm(tadj, x, backend="ell")
+    with pytest.raises(ValueError, match="rank 2"):
+        tops.spmm(tadj, x[0])

@@ -1,0 +1,134 @@
+"""Where a GCN training step's time goes on one NVIDIA GPU.
+
+    python3 tools/profile_gcn_step.py [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
+
+Builds the arxiv-scale graph and GCN of ``chip_smoke.py`` phase 2 (3 x 256,
+40 classes, dropout 0.5, Adam lr 0.01) and runs ``fit``'s training step on
+it: dropout -> GCN -> masked cross entropy, backward, Adam. After
+``--warmup`` steps it times ``--timed`` untraced steps with CUDA events,
+then traces ``--steps`` steps with ``torch.profiler``. It prints:
+
+- ms per step, untraced and traced (CUDA events around the steps);
+- device-busy ms per step: the union of the intervals of every device
+  activity (kernels, copies, memsets) in the trace, so nothing is counted
+  twice;
+- the idle share, 1 - busy / traced window;
+- device ms, launches and share of busy time per kernel name.
+
+``--trace`` also writes a Chrome trace to PATH. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import (  # noqa: E402
+    N_NODES, arxiv_gcn_config, arxiv_scale_data, arxiv_scale_edges, log, nvidia_smi,
+)
+from gnn_tpu_torch.nn import cross_entropy  # noqa: E402
+from gnn_tpu_torch.train.loop import build_model, build_optimizer  # noqa: E402
+
+DEVICE_TYPES = (DeviceType.CUDA,)
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def timed_ms(step, n: int) -> float:
+    """Device-timeline ms per step over ``n`` steps, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--warmup", type=int, default=5)
+    ap.add_argument("--timed", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--trace", default="")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_gcn_step.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    log(nvidia_smi())
+    log(f"torch {torch.__version__}  cuda {torch.version.cuda}")
+
+    data = arxiv_scale_data(arxiv_scale_edges())
+    cfg = arxiv_gcn_config()
+    model = build_model(
+        cfg, data.num_features, int(data.y.max()) + 1,
+        torch.Generator().manual_seed(cfg.train.seed),
+    ).to(dev)
+    model.train()
+    adj = data.to_adjacency(norm="sym").to(dev)
+    data = data.to(dev)
+    opt = build_optimizer(cfg, model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
+    log(f"graph: {N_NODES} nodes, {adj.num_edges} edges with self loops")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy(model(data.x, adj, generator=gen), data.y, data.train_mask)
+        loss.backward()
+        opt.step()
+
+    for _ in range(args.warmup):
+        step()
+    untraced = timed_ms(step, args.timed)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = timed_ms(step, args.steps)
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+    # User annotations (e.g. "Optimizer.step#Adam.step") span the gaps between
+    # the kernels they cover, so only real device activity counts.
+    device_events = [
+        e for e in prof.events()
+        if e.device_type in DEVICE_TYPES and not getattr(e, "is_user_annotation", False)
+    ]
+    if not device_events:
+        raise SystemExit("the trace holds no device activity; time with CUDA events only")
+    busy = union_us((e.time_range.start, e.time_range.end) for e in device_events) / 1e3 / args.steps
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in device_events:
+        per_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3 / args.steps
+        per_name[e.name][1] += 1
+    log(f"ms per step: untraced {untraced:.3f} (mean of {args.timed}), "
+        f"traced {traced:.3f} (mean of {args.steps})")
+    log(f"device busy per step: {busy:.3f} ms; idle share {1 - busy / traced:.4f}")
+    log(f"{'device ms/step':>14s} {'launches/step':>13s} {'share':>6s}  kernel")
+    for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0]):
+        log(f"{ms:14.3f} {count / args.steps:13.1f} {ms / busy:6.1%}  {name[:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
