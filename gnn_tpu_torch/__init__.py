@@ -1,7 +1,7 @@
 """gnn_tpu_torch — the PyTorch / CUDA port of ``gnn_tpu`` for NVIDIA Hopper.
 
-The full-graph GCN training path of ``gnn_tpu``, in PyTorch, with the
-sparse aggregation on hand-written CUDA kernels for ``sm_90a``
+The full-graph GCN and GAT training paths of ``gnn_tpu``, in PyTorch, with
+the sparse aggregation on hand-written CUDA kernels for ``sm_90a``
 (``csrc/``, built with ``nvcc`` at first launch). Module names mirror
 ``gnn_tpu``; the JAX package stays the reference the tests hold this one
 against. This package never imports jax.

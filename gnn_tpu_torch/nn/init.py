@@ -12,7 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["kaiming_uniform", "uniform"]
+__all__ = ["kaiming_uniform", "glorot_uniform", "uniform"]
 
 
 def uniform(
@@ -38,4 +38,18 @@ def kaiming_uniform(
     if fan_in is None:
         fan_in = shape[-1] if len(shape) >= 2 else shape[0]
     bound = 1.0 / math.sqrt(max(fan_in, 1))
+    return uniform(shape, minval=-bound, maxval=bound, generator=generator, dtype=dtype)
+
+
+def glorot_uniform(
+    shape: Sequence[int],
+    *,
+    generator: Optional[torch.Generator] = None,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """U(-b, b) with b = sqrt(6 / (fan_in + fan_out)), fan_in = shape[-2]
+    (shape[0] for a vector) and fan_out = shape[-1], as the JAX package
+    counts them."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[0]
+    bound = math.sqrt(6.0 / (fan_in + shape[-1]))
     return uniform(shape, minval=-bound, maxval=bound, generator=generator, dtype=dtype)

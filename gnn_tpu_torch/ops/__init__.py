@@ -1,9 +1,13 @@
-"""Sparse ops: SpMM and segment reductions, on the hand-written kernels."""
+"""Sparse ops: SpMM, edge gathers and segment reductions, on the
+hand-written kernels."""
 
+from gnn_tpu_torch.ops.gather import gather_dst_edges, gather_src_edges
 from gnn_tpu_torch.ops.segment import (
     segment_max,
     segment_mean,
     segment_min,
+    segment_normalize,
+    segment_softmax,
     segment_sum,
     segment_sum_edges,
 )
@@ -12,9 +16,13 @@ from gnn_tpu_torch.ops.spmm import spmm, spmm_edge_weighted
 __all__ = [
     "spmm",
     "spmm_edge_weighted",
+    "gather_src_edges",
+    "gather_dst_edges",
     "segment_sum",
     "segment_mean",
     "segment_max",
     "segment_min",
+    "segment_softmax",
+    "segment_normalize",
     "segment_sum_edges",
 ]

@@ -3,12 +3,15 @@ wrappers, plain versions and launch counters.
 
 K1 :func:`csr_spmm` replaces ``gnn_tpu/ops/pallas/spmm.py::spmm_pallas``;
 K2 :func:`segment_sum_csr` replaces
-``gnn_tpu/ops/pallas/segment.py::segment_sum_sorted``. The kernels build at
-first launch (``_build.load``), never at import.
+``gnn_tpu/ops/pallas/segment.py::segment_sum_sorted``; K3
+:func:`csr_spmm_heads` replaces GAT's numerator reduction
+(``gnn_tpu/mp/gat.py:193-202``). The kernels build at first launch
+(``_build.load``), never at import.
 """
 
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain, spmm_csr
+from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain, spmm_heads_csr
 
 __all__ = [
     "csr_spmm",
@@ -16,4 +19,7 @@ __all__ = [
     "spmm_csr",
     "segment_sum_csr",
     "segment_sum_csr_plain",
+    "csr_spmm_heads",
+    "csr_spmm_heads_plain",
+    "spmm_heads_csr",
 ]

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources in ``gnn_tpu_torch/csrc`` compile with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Each source in ``gnn_tpu_torch/csrc`` compiles with its own ``nvcc`` for
+``sm_90a``, all started together, and the objects link into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The build happens at first use, into ``build/gnn_tpu_torch/`` at the root of
 the checkout. The library's file name carries a hash of the sources and the
 flags, so an edited source builds anew and an unchanged one is reused.
@@ -24,9 +25,11 @@ __all__ = ["NVCC_FLAGS", "build_dir", "load", "build_info"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+# Compile flags of each source; the link adds "-shared".
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    *_ARCH,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -42,6 +45,9 @@ _SIGNATURES = {
     # row_ptr, msg, out, n_rows, F, vec, stream
     "gnn_segment_sum_f32": [_VOID] * 3 + [_INT] * 3 + [_VOID],
     "gnn_segment_sum_bf16": [_VOID] * 3 + [_INT] * 3 + [_VOID],
+    # row_ptr, col, w, x, out, n_rows, H, F, vec, stream
+    "gnn_gat_spmm_f32": [_VOID] * 5 + [_INT] * 4 + [_VOID],
+    "gnn_gat_spmm_bf16": [_VOID] * 5 + [_INT] * 4 + [_VOID],
 }
 
 
@@ -77,14 +83,32 @@ def _build() -> pathlib.Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), *map(str, cu)]
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(o), str(p)]
+                    for p, o in zip(cu, objs))
+    ]
+    log, failed = "", []
+    for cmd, proc in compiles:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError("\n".join(failed))
     os.replace(tmp, lib_path)
     lib_path.with_suffix(".log").write_text(log)
     _info.update(path=str(lib_path), built=True, seconds=seconds, log=log)

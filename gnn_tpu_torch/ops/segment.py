@@ -2,7 +2,9 @@
 
 Port of ``gnn_tpu/ops/segment.py``. ``segment_sum``/``mean``/``max``/``min``
 are plain torch reductions over explicit segment ids (what
-``MessagePassing.aggregate`` uses). :func:`segment_sum_edges` reduces
+``MessagePassing.aggregate`` uses), and so are ``segment_softmax`` and
+``segment_normalize``: the max is ``scatter_reduce("amax")``, since the JAX
+package has no kernel for it either. :func:`segment_sum_edges` reduces
 per-edge values in an adjacency's dst-sorted order to per-destination sums
 through kernel K2, with the backward a gather by destination (as at
 ``gnn_tpu/ops/segment.py:204-206``).
@@ -19,6 +21,8 @@ __all__ = [
     "segment_mean",
     "segment_max",
     "segment_min",
+    "segment_softmax",
+    "segment_normalize",
     "segment_sum_edges",
 ]
 
@@ -55,6 +59,30 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Empty segments come out +inf, as in JAX."""
     return _segment_extreme(data, segment_ids, num_segments, "amin", float("inf"))
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Softmax within each segment (a node's in-edges), shifted by the
+    per-segment max (held constant in the backward, as ``stop_gradient``)."""
+    maxes = segment_max(logits.detach(), segment_ids, num_segments)
+    maxes = torch.where(torch.isfinite(maxes), maxes, torch.zeros_like(maxes))
+    ids = segment_ids.long()
+    exp = torch.exp(logits - maxes.index_select(0, ids))
+    denom = segment_sum(exp, segment_ids, num_segments).clamp_min(1e-16)
+    return exp / denom.index_select(0, ids)
+
+
+def segment_normalize(
+    data: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    *,
+    p: float = 1.0,
+    eps: float = 1e-12,
+) -> torch.Tensor:
+    """Scale entries so each segment's Lp mass is 1."""
+    mass = segment_sum(data.abs() ** p, segment_ids, num_segments) ** (1.0 / p)
+    return data / mass.index_select(0, segment_ids.long()).clamp_min(eps)
 
 
 class _SegmentSumEdges(torch.autograd.Function):

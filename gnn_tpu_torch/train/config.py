@@ -18,7 +18,7 @@ __all__ = ["ModelConfig", "OptimConfig", "TrainConfig", "DistConfig", "Config"]
 
 @dataclass
 class ModelConfig:
-    name: str = "gcn"  # gcn (ported) | sage | gat | encoder_gcn | gin
+    name: str = "gcn"  # gcn | gat (ported) | sage | encoder_gcn | gin
     hidden: int = 64
     num_layers: int = 2
     dropout: float = 0.5

@@ -2,11 +2,12 @@
 
 Port of the single-device full-graph branch of ``gnn_tpu/train/loop.py::fit``:
 one-time prep (exact ``gcn_norm`` and the CSR adjacency, moved to the
-device), then per epoch dropout -> GCN -> masked cross entropy -> backward
--> Adam, with evaluation, metrics and early stopping on validation accuracy.
-Sampled minibatches, multi-device partitions, host-resident features,
-checkpoints, relabelled layouts and the non-GCN models are not ported yet:
-their settings raise ``NotImplementedError`` (ROADMAP Queue 1).
+device), then per epoch the model (GCN or GAT; GAT ignores the edge weights)
+-> masked cross entropy -> backward -> Adam, with evaluation, metrics and
+early stopping on validation accuracy. Sampled minibatches, multi-device
+partitions, host-resident features, checkpoints, relabelled layouts and the
+SAGE, GIN and EncoderGCN models are not ported yet: their settings raise
+``NotImplementedError`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from torch import nn
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency
 from gnn_tpu_torch.graphs.data import Data
-from gnn_tpu_torch.models import GCN
+from gnn_tpu_torch.models import GAT, GCN
 from gnn_tpu_torch.nn.losses import accuracy, cross_entropy
 from gnn_tpu_torch.optim import Adam, AdamW
 from gnn_tpu_torch.train.config import Config
@@ -39,9 +40,14 @@ def build_model(
             in_features, m.hidden, num_classes,
             num_layers=m.num_layers, dropout=m.dropout, generator=generator,
         )
-    if m.name in ("sage", "gat", "gin", "encoder_gcn"):
+    if m.name == "gat":
+        return GAT(
+            in_features, m.hidden, num_classes,
+            num_layers=m.num_layers, heads=m.heads, dropout=m.dropout, generator=generator,
+        )
+    if m.name in ("sage", "gin", "encoder_gcn"):
         raise NotImplementedError(
-            f"model '{m.name}' is not ported yet (ROADMAP Queue 1 items 5 and 11)"
+            f"model '{m.name}' is not ported yet (ROADMAP Queue 1 items 4-5 and 11)"
         )
     raise ValueError(f"unknown model '{m.name}'")
 
@@ -104,7 +110,8 @@ def fit(
     verbose: bool = True,
 ) -> Tuple[nn.Module, None, list]:
     """Train per config on ``device``. Returns (trained model, None, history);
-    the middle slot is the JAX package's buffer state, which GCN has none of.
+    the middle slot is the JAX package's buffer state, which GCN and GAT have
+    none of.
 
     Each history entry holds the split accuracies, ``loss`` (of the epoch's
     step), ``edges_per_s`` since the start, and ``step_ms``: the wall time

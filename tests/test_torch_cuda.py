@@ -16,6 +16,7 @@ from gnn_tpu_torch import graphs as tg
 from gnn_tpu_torch import ops as tops
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
+from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain
 
 
 @pytest.fixture
@@ -77,3 +78,65 @@ def test_kernel_wrappers_reject_bad_arguments(cuda_device):
         csr_spmm(rp, col, None, x.t())
     with pytest.raises(ValueError, match="is on cpu"):
         segment_sum_csr(rp.cpu(), x)
+
+
+def _attention_graph(device, n=3000):
+    """A power-law graph with self loops, the shape of GAT's adjacency."""
+    ei, _ = tg.to_undirected(tg.power_law(n, 40000, seed=1), num_nodes=n)
+    ei, _ = tg.add_remaining_self_loops(ei, num_nodes=n)
+    return tg.build_adjacency(ei, num_nodes=n).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,F,aligned", [(8, 32, True), (1, 40, True), (3, 5, True), (4, 8, False)])
+def test_spmm_heads_matches_plain_version_on_card(cuda_device, dtype, H, F, aligned):
+    """K3 forward and transpose against its plain version, with weights
+    normalized per destination as GAT's attention is (so the sums stay
+    O(1)); tolerances as for K1 above."""
+    adj = _attention_graph(cuda_device)
+    n, e = adj.num_dst_nodes, adj.num_edges
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=1e-3)
+    w = torch.rand(e, H, device=cuda_device)
+    w = w / tops.segment_sum(w, adj.dst, n).index_select(0, adj.dst.long())
+    x = (torch.randn(n, H, F, device=cuda_device).to(dtype) if aligned
+         else _misaligned(n, H * F, dtype, cuda_device).view(n, H, F))
+    k3 = csr_spmm_heads.launches
+    got = csr_spmm_heads(adj.row_ptr, adj.src, w, x)
+    assert got.shape == (n, H, F) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), csr_spmm_heads_plain(adj.row_ptr, adj.src, w, x).float(), **tol)
+    t_w = w.index_select(0, adj.t_perm.long())
+    got = csr_spmm_heads(adj.t_row_ptr, adj.t_col, t_w, x)
+    torch.testing.assert_close(
+        got.float(), csr_spmm_heads_plain(adj.t_row_ptr, adj.t_col, t_w, x).float(), **tol
+    )
+    torch.cuda.synchronize()
+    assert csr_spmm_heads.launches - k3 == 2
+
+
+@pytest.mark.gpu
+def test_gat_on_card_matches_cpu(cuda_device):
+    """GATConv forward and gradients on the card (K1, K2, K3) against the
+    same layer on the CPU (plain versions), and the launches of each."""
+    from gnn_tpu_torch.mp import GATConv
+
+    adj = _attention_graph("cpu", n=2000)
+    x = torch.randn(adj.num_dst_nodes, 16)
+    conv_cpu = GATConv(16, 8, heads=4, generator=torch.Generator().manual_seed(0))
+    conv_gpu = GATConv(16, 8, heads=4).to(cuda_device)
+    conv_gpu.load_state_dict(conv_cpu.state_dict())
+    before = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    outs = []
+    for conv, a, xx in ((conv_cpu, adj, x), (conv_gpu, adj.to(cuda_device), x.to(cuda_device))):
+        xx = xx.clone().requires_grad_()
+        out = conv(xx, a)
+        (out ** 2).sum().backward()
+        outs.append((out.detach().cpu(), xx.grad.cpu(), [p.grad.cpu() for p in conv.parameters()]))
+    torch.cuda.synchronize()
+    after = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 2, 2)
+    (o_c, dx_c, g_c), (o_g, dx_g, g_g) = outs
+    torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

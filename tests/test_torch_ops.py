@@ -162,3 +162,120 @@ def test_cpu_tensors_take_the_plain_version(rng):
         tops.spmm(tadj, x, backend="ell")
     with pytest.raises(ValueError, match="rank 2"):
         tops.spmm(tadj, x[0])
+
+
+def _gat_graph(rng, layout, n=300, e=3000):
+    """One edge list through both packages; both sort edges by (dst, src),
+    so per-edge arrays line up."""
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)]).astype(np.int64)
+    jadj = jg.build_adjacency(ei, num_nodes=n, layout=layout)
+    tadj = tg.build_adjacency(ei, num_nodes=n)
+    np.testing.assert_array_equal(np.asarray(jadj.src), tadj.src.numpy())
+    np.testing.assert_array_equal(np.asarray(jadj.dst), tadj.dst.numpy())
+    return jadj, tadj
+
+
+def test_spmm_heads_matches_jax_segment_kernel(rng):
+    """K3's plain version against GAT's numerator in the JAX package: the
+    [E, H, F] messages w * h[src] through the Pallas segment sum
+    (interpret mode), forward and the VJPs in h and in w."""
+    from gnn_tpu_torch.ops.cuda.spmm_heads import spmm_heads_csr
+
+    jadj, tadj = _gat_graph(rng, "ell")
+    assert jadj.num_edges >= jadj.chunk_plan.chunk  # the kernel, not XLA
+    n, E, H, F = jadj.num_dst_nodes, jadj.num_edges, 4, 8
+    h = rng.normal(size=(n, H, F)).astype(np.float32)
+    w = rng.random((E, H)).astype(np.float32)
+    ct = rng.normal(size=(n, H, F)).astype(np.float32)
+
+    def jax_num(h, w):
+        msgs = w[:, :, None] * jnp.take(h, jadj.src, axis=0)
+        return jax_segment_sum_edges(msgs, jadj, backend="pallas", interpret=True)
+
+    j_out, vjp = jax.vjp(jax_num, jnp.asarray(h), jnp.asarray(w))
+    j_dh, j_dw = vjp(jnp.asarray(ct))
+    ht = torch.from_numpy(h).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    out = spmm_heads_csr(tadj, ht, wt)
+    out.backward(torch.from_numpy(ct))
+    assert out.shape == (n, H, F) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(ht.grad.numpy(), np.asarray(j_dh), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(j_dw), rtol=1e-5, atol=1e-4)
+
+
+def test_spmm_heads_one_head_is_csr_spmm(rng):
+    from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads_plain
+
+    n, e, F = 200, 2500, 40
+    dst = np.sort(rng.integers(0, n, e))
+    rp = _row_ptr(dst, n)
+    col = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    w = torch.from_numpy(rng.random(e).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n, F)).astype(np.float32))
+    got = csr_spmm_heads_plain(rp, col, w[:, None], x[:, None, :])
+    torch.testing.assert_close(got[:, 0, :], csr_spmm_plain(rp, col, w, x), rtol=1e-6, atol=1e-6)
+
+
+def test_spmm_heads_bf16_rounds_weights_like_jax(rng):
+    """bf16 x: the weights are rounded to bf16 (ex_num.astype(h.dtype) in
+    gnn_tpu/mp/gat.py:199), the sums are float32, the output bf16."""
+    from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads
+
+    n, e, H, F = 100, 1500, 2, 8
+    dst = np.sort(rng.integers(0, n, e))
+    rp = _row_ptr(dst, n)
+    col = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    w = torch.from_numpy(rng.random((e, H)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n, H, F)).astype(np.float32)).to(torch.bfloat16)
+    before = csr_spmm_heads.launches
+    out = csr_spmm_heads(rp, col, w, x)
+    assert out.dtype == torch.bfloat16 and csr_spmm_heads.launches == before
+    msg = w.to(torch.bfloat16).float()[:, :, None] * x.float()[col.long()]
+    want = torch.zeros(n, H, F).index_add_(0, torch.from_numpy(dst), msg).to(torch.bfloat16)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["ell", "csr"])
+@pytest.mark.parametrize("end", ["src", "dst"])
+def test_edge_gathers_match_jax(rng, layout, end):
+    """Forward and VJP of gather_{src,dst}_edges against gnn_tpu.ops.gather.
+    On the CPU, 'ell' takes the JAX slot-table branch and 'csr' the
+    segment_sum branch; both are the same sum (the Pallas branch is held by
+    the segment_sum_edges comparisons)."""
+    from gnn_tpu.ops import gather as jgather
+    from gnn_tpu_torch.ops import gather_dst_edges, gather_src_edges
+
+    jadj, tadj = _gat_graph(rng, layout)
+    n, E = jadj.num_dst_nodes, jadj.num_edges
+    x = rng.normal(size=(n, 2, 3)).astype(np.float32)
+    ct = rng.normal(size=(E, 2, 3)).astype(np.float32)
+    jfn = {"src": jgather.gather_src_edges, "dst": jgather.gather_dst_edges}[end]
+    tfn = {"src": gather_src_edges, "dst": gather_dst_edges}[end]
+    j_out, vjp = jax.vjp(lambda v: jfn(v, jadj), jnp.asarray(x))
+    (j_dx,) = vjp(jnp.asarray(ct))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = tfn(xt, tadj)
+    out.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), rtol=0, atol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(j_dx), **TOL)
+
+
+def test_segment_softmax_and_normalize_match_jax(rng):
+    from gnn_tpu.ops import segment as jseg
+
+    n, e = 50, 400
+    ids = np.sort(rng.integers(0, n, e))  # some segments empty
+    logits = (rng.normal(size=(e, 3)) * 30).astype(np.float32)
+    ct = rng.normal(size=(e, 3)).astype(np.float32)
+    j_out, vjp = jax.vjp(lambda v: jseg.segment_softmax(v, jnp.asarray(ids), n), jnp.asarray(logits))
+    (j_g,) = vjp(jnp.asarray(ct))
+    lt = torch.from_numpy(logits).requires_grad_()
+    out = tops.segment_softmax(lt, torch.from_numpy(ids), n)
+    out.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(lt.grad.numpy(), np.asarray(j_g), **TOL)
+    for p in (1.0, 2.0):
+        want = jseg.segment_normalize(jnp.asarray(logits), jnp.asarray(ids), n, p=p)
+        got = tops.segment_normalize(torch.from_numpy(logits), torch.from_numpy(ids), n, p=p)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

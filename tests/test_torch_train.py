@@ -96,7 +96,8 @@ def test_fit_on_cuda_raises_without_a_card(monkeypatch):
         {"train.checkpoint_dir": "ckpt"},
         {"train.reorder": "true"},
         {"train.reorder": "cluster"},
-        {"model.name": "gat"},
+        {"model.name": "gat", "train.batch_size": 64},
+        {"model.name": "sage"},
         {"model.name": "encoder_gcn"},
         {"optim.name": "sgd"},
         {"optim.grad_clip": 1.0},

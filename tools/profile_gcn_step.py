@@ -1,10 +1,12 @@
-"""Where a GCN training step's time goes on one NVIDIA GPU.
+"""Where a GCN or GAT training step's time goes on one NVIDIA GPU.
 
-    python3 tools/profile_gcn_step.py [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
+    python3 tools/profile_gcn_step.py [--model gcn|gat] [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
 
-Builds the arxiv-scale graph and GCN of ``chip_smoke.py`` phase 2 (3 x 256,
-40 classes, dropout 0.5, Adam lr 0.01) and runs ``fit``'s training step on
-it: dropout -> GCN -> masked cross entropy, backward, Adam. After
+Builds the arxiv-scale graph and the model of ``chip_smoke.py`` phase 2
+(``--model gcn``, the default: GCN 3 x 256, 40 classes, dropout 0.5, Adam lr
+0.01) or phase 2-gat (``--model gat``: GAT 2 layers, 8 heads x 32, 1 output
+head, dropout 0.5, Adam lr 0.005) and runs ``fit``'s training step on it:
+the model with dropout -> masked cross entropy, backward, Adam. After
 ``--warmup`` steps it times ``--timed`` untraced steps with CUDA events,
 then traces ``--steps`` steps with ``torch.profiler``. It prints:
 
@@ -32,7 +34,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    N_NODES, arxiv_gcn_config, arxiv_scale_data, arxiv_scale_edges, log, nvidia_smi,
+    N_NODES, arxiv_gat_config, arxiv_gcn_config, arxiv_scale_data, arxiv_scale_edges, log,
+    nvidia_smi,
 )
 from gnn_tpu_torch.nn import cross_entropy  # noqa: E402
 from gnn_tpu_torch.train.loop import build_model, build_optimizer  # noqa: E402
@@ -69,6 +72,7 @@ def timed_ms(step, n: int) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("gcn", "gat"), default="gcn")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--timed", type=int, default=10)
     ap.add_argument("--steps", type=int, default=5)
@@ -82,7 +86,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}")
 
     data = arxiv_scale_data(arxiv_scale_edges())
-    cfg = arxiv_gcn_config()
+    cfg = arxiv_gcn_config() if args.model == "gcn" else arxiv_gat_config()
     model = build_model(
         cfg, data.num_features, int(data.y.max()) + 1,
         torch.Generator().manual_seed(cfg.train.seed),
@@ -92,7 +96,7 @@ def main(argv=None) -> int:
     data = data.to(dev)
     opt = build_optimizer(cfg, model.parameters())
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
-    log(f"graph: {N_NODES} nodes, {adj.num_edges} edges with self loops")
+    log(f"graph: {N_NODES} nodes, {adj.num_edges} edges with self loops; model {args.model}")
 
     def step():
         opt.zero_grad(set_to_none=True)
