@@ -3,21 +3,31 @@
     python3 chip_smoke.py
 
 Phase 0 builds the hand-written kernels from ``gnn_tpu_torch/csrc`` with
-nvcc (one process per source, all at once) and prints the card, its power
-limit and the build time. Phase 1 holds each kernel against its plain
-PyTorch version on an ogbn-arxiv-scale graph (power law, 169,343 nodes,
-about 2.5 M normalized edges with self loops), float32 and bfloat16, and
-times both with CUDA events: K1 and K2 at F in {40, 128, 256} (the GCN
-widths), then the GAT shapes: K3 forward and transpose at (H, F) = (8, 32)
-and (1, 40), K2 at widths 8 and 1 (the softmax denominator), K1 over
-``col = t_perm`` at width 8 (the VJP of the source gather). Phase 2 trains
-the port's full-graph GCN (3 layers, hidden 256, 40 classes) for 5 epochs on
-that graph through ``gnn_tpu_torch.train.fit``; phase 2-gat trains the GAT
-(2 layers, 8 heads x 32, 1 output head over 40 classes) for 5 epochs there.
-Each checks its losses and that it launched its kernels as often as its
-layers ask. Phase 3 checks the kernel path against the CPU path on a small
-graph for GCN and GAT, trains the Kipf GCN and the GAT recipes on
-``cora_like`` into their accuracy bands, and runs the CLI.
+nvcc (one process per source, all at once) and the C++ graph core with g++,
+and prints the card, its power limit and the build times. Phase 1 holds each
+kernel against its plain PyTorch version on an ogbn-arxiv-scale graph (power
+law, 169,343 nodes, about 2.5 M normalized edges with self loops), float32
+and bfloat16, and times both with CUDA events: K1 and K2 at F in {40, 128,
+256} (the GCN widths), then the GAT shapes: K3 forward and transpose at (H,
+F) = (8, 32) and (1, 40), K2 at widths 8 and 1 (the softmax denominator), K1
+over ``col = t_perm`` at width 8 (the VJP of the source gather). Phase
+1-blocked builds the clustered arxiv-scale graph (``clustered_power_law``,
+the recipe of bench.py's blocked workload) with ``reorder='cluster'`` twice,
+at 256-row float32 and 512-row bfloat16 windows, and holds
+``blocked_matvec`` (the block product plus K1 over the remainder CSR)
+forward and transpose at F in {256, 40} against its plain version, the
+float32 one also against K1 over the whole relabelled CSR, with times of all
+three. Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
+classes) for 5 epochs on the power-law graph through
+``gnn_tpu_torch.train.fit``;
+phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
+classes) for 5 epochs there; phase 2-cluster trains the GCN on the clustered
+graph twice with the same seeds, with ``train.reorder='cluster'`` (the
+blocked layout) and ``'auto'`` (the CSR). Each checks its losses and that it
+launched its kernels as often as its layers ask. Phase 3 checks the kernel
+path against the CPU path on a small graph for GCN, GAT and the blocked GCN,
+trains the Kipf GCN (on the CSR and on the blocked layout) and the GAT
+recipes on ``cora_like`` into their accuracy bands, and runs the CLI.
 
 The next-to-last line of standard output is a JSON object with each
 kernel's launches, error and times; the last is
@@ -36,8 +46,10 @@ import time
 import numpy as np
 import torch
 
+from gnn_tpu_torch import native
 from gnn_tpu_torch.graphs import Data, build_adjacency, gcn_norm, power_law, to_undirected
-from gnn_tpu_torch.graphs.generate import cora_like, stochastic_block_model
+from gnn_tpu_torch.graphs.blocked import _diag_product, blocked_matvec, blocked_matvec_plain
+from gnn_tpu_torch.graphs.generate import clustered_power_law, cora_like, stochastic_block_model
 from gnn_tpu_torch.models import GAT, GCN
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
@@ -53,6 +65,10 @@ E_DIRECTED = 1_157_799
 IN_FEATURES, NUM_CLASSES = 128, 40
 WIDTHS = (40, 128, 256)
 GAT_HEADS = ((8, 32), (1, 40))  # (H, F) of the hidden and the output layer
+# (block_rows, block dtype) of phase 1-blocked: fit's default, and the
+# configuration of bench.py's blocked workload
+BLOCKED_CONFIGS = ((256, None), (512, torch.bfloat16))
+BLOCKED_WIDTHS = (256, 40)
 # float32: hub rows sum thousands of terms in another order than the plain
 # version's atomics. bfloat16: the plain version sums the same bf16 inputs
 # in float32 and rounds once, so the two differ by at most one bf16 rounding
@@ -61,7 +77,7 @@ TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
 KERNELS = {
     "csr_spmm": dict(
         source="gnn_tpu_torch/csrc/csr_spmm.cu",
-        replaces="gnn_tpu/ops/pallas/spmm.py:102",
+        replaces="gnn_tpu/ops/pallas/spmm.py:102, gnn_tpu/graphs/blocked.py:650",
     ),
     "segment_sum_csr": dict(
         source="gnn_tpu_torch/csrc/segment_sum.cu",
@@ -72,7 +88,10 @@ KERNELS = {
         replaces="gnn_tpu/mp/gat.py:201",
     ),
 }
-COUNTERS = {"csr_spmm": csr_spmm, "segment_sum_csr": segment_sum_csr, "csr_spmm_heads": csr_spmm_heads}
+COUNTERS = {
+    "csr_spmm": csr_spmm, "segment_sum_csr": segment_sum_csr, "csr_spmm_heads": csr_spmm_heads,
+    "blocked_matvec": blocked_matvec,
+}
 
 
 def log(msg: str) -> None:
@@ -124,6 +143,13 @@ def arxiv_scale_edges() -> np.ndarray:
     return ei
 
 
+def clustered_edges() -> np.ndarray:
+    """The clustered arxiv-scale graph (bench.py's blocked workload), undirected."""
+    ei = clustered_power_law(N_NODES, E_DIRECTED, avg_community=200, intra_frac=0.85, seed=0)
+    ei, _ = to_undirected(ei, num_nodes=N_NODES)
+    return ei
+
+
 def phase0() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -140,6 +166,9 @@ def phase0() -> dict:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    native.load()
+    log(f"graph core (g++) build and load: {time.perf_counter() - t0:.2f} s")
     return info
 
 
@@ -201,6 +230,61 @@ def phase1(adj, dev, results) -> None:
                 del w, dw_ref
             del fwd, fwd_ref, xr, dx_ref, seg, msg
         del x32, g32, m32
+        torch.cuda.empty_cache()
+
+
+def phase1_blocked(edges: np.ndarray, dev, results) -> None:
+    """blocked_matvec (the block product, then K1 over the remainder CSR)
+    against its plain version, forward and transpose, at the GCN's widths;
+    the float32 configuration also against K1 over the whole relabelled CSR
+    of the same graph. Times: blocked, its plain version, the block product
+    alone, K1 over the remainder alone, and K1 over the whole CSR."""
+    ei, w = gcn_norm(edges, num_nodes=N_NODES, self_loops=True)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for rows, block_dtype in BLOCKED_CONFIGS:
+        t0 = time.perf_counter()
+        adj = build_adjacency(ei, w, num_nodes=N_NODES, reorder="cluster", block_rows=rows,
+                              block_dtype=block_dtype)
+        prep = time.perf_counter() - t0
+        adj = adj.to(dev)
+        cfg = f"R={rows} {str(adj.blocked.diag.dtype).removeprefix('torch.')}"
+        for name in ("blocked", "t_blocked"):
+            lay = getattr(adj, name)
+            dense = lay.num_dense_edges
+            log(f"phase1-blocked {cfg} {name}: windows={lay.num_blocks} dense_edges={dense} "
+                f"({dense / adj.num_edges:.1%}) remainder_edges={lay.num_rem_edges} "
+                f"max_remainder_in_degree={int(lay.rem_row_ptr.diff().max())} "
+                f"max_in_degree={int(adj.row_ptr.diff().max())} prep_s={prep:.2f}")
+        for F in BLOCKED_WIDTHS:
+            x = torch.randn(N_NODES, F, generator=gen, device=dev)
+            g = torch.randn(N_NODES, F, generator=gen, device=dev)
+            cases = (
+                ("fwd A@x", adj.blocked, x, (adj.row_ptr, adj.src, adj.weight)),
+                ("dx=A^T g", adj.t_blocked, g, (adj.t_row_ptr, adj.t_col, adj.t_weight)),
+            )
+            for what, lay, v, csr in cases:
+                tag = f"{cfg} F={F} {what}"
+                got = blocked_matvec(lay, v)
+                err = compare(f"blocked_matvec {tag}", got, blocked_matvec_plain(lay, v), torch.float32)
+                ms = time_ms(lambda: blocked_matvec(lay, v))
+                plain_ms = time_ms(lambda: blocked_matvec_plain(lay, v))
+                xw = torch.nn.functional.pad(v, (0, 0, 0, lay.diag.shape[0] * rows - N_NODES))
+                xw = xw.view(-1, rows, F).to(lay.diag.dtype)
+                diag_ms = time_ms(lambda: _diag_product(lay.diag, xw))
+                rem_ms = time_ms(lambda: csr_spmm(lay.rem_row_ptr, lay.rem_src, lay.rem_w, v))
+                line = (f"phase1-blocked {tag:28s} max_abs_err={err:.3e} blocked_ms={ms:.4f} "
+                        f"plain_ms={plain_ms:.4f} bmm_ms={diag_ms:.4f} k1_remainder_ms={rem_ms:.4f}")
+                if block_dtype is None:
+                    err_csr = compare(f"blocked_matvec vs full-CSR K1 {tag}", got, csr_spmm(*csr, v), torch.float32)
+                    csr_ms = time_ms(lambda: csr_spmm(*csr, v))
+                    line += f" k1_full_csr_ms={csr_ms:.4f} err_vs_full_csr={err_csr:.3e}"
+                log(line)
+                results["csr_spmm"]["rows"].append(dict(
+                    F=F, dtype="torch.float32", what=f"blocked {what} {cfg}", err=err, ms=ms, plain_ms=plain_ms,
+                ))
+                results["csr_spmm"]["errs"].append(err)
+            del x, g
+        del adj
         torch.cuda.empty_cache()
 
 
@@ -317,7 +401,7 @@ def phase2(data: Data, dev) -> dict:
     Linear output) and once a layer in the evaluation."""
     cfg = arxiv_gcn_config()
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0}
+    want = {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 0}
     return train_phase("phase2", cfg, data, dev, want)
 
 
@@ -328,48 +412,71 @@ def phase2_gat(data: Data, dev) -> dict:
     evaluation runs the forward again."""
     cfg = arxiv_gat_config()
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n}
+    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "blocked_matvec": 0}
     return train_phase("phase2-gat", cfg, data, dev, want)
 
 
-def phase3(dev) -> None:
-    """Correctness at small size, the Cora accuracy band, and the CLI."""
-    data = stochastic_block_model(num_nodes=400, num_classes=4, seed=3)
-    adj_cpu = data.to_adjacency(norm="sym")
-    adj_gpu = adj_cpu.to(dev)
-    model_cpu = GCN(data.num_features, 32, 4, num_layers=3, dropout=0.0,
-                    generator=torch.Generator().manual_seed(0))
-    model_gpu = GCN(data.num_features, 32, 4, num_layers=3, dropout=0.0).to(dev)
+def phase2_cluster(data: Data, dev) -> dict:
+    """The GCN on the clustered graph through ``fit``, with the same seeds,
+    first with ``train.reorder='cluster'``: each blocked product (3 layers x
+    forward, dx and evaluation) is one blocked_matvec, which launches K1
+    once over its remainder; then with ``'auto'``, K1 over the CSR."""
+    n = arxiv_gcn_config().train.epochs * arxiv_gcn_config().model.num_layers
+    out = {}
+    for reorder, want in (
+        ("cluster", {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 3 * n}),
+        ("auto", {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 0}),
+    ):
+        cfg = arxiv_gcn_config()
+        cfg.train.reorder = reorder
+        out[reorder] = train_phase(f"phase2-cluster reorder={reorder}", cfg, data, dev, want)
+    return out
+
+
+def card_vs_cpu(label: str, make_model, data: Data, adj_cpu, dev) -> None:
+    """Logits and gradients of one model on the card against the CPU."""
+    model_cpu = make_model(torch.Generator().manual_seed(0))
+    model_gpu = make_model(None).to(dev)
     model_gpu.load_state_dict(model_cpu.state_dict())
+    adj_gpu = adj_cpu.to(dev)
     for model, adj, d in ((model_cpu, adj_cpu, data), (model_gpu, adj_gpu, data.to(dev))):
         cross_entropy(model(d.x, adj), d.y, d.train_mask).backward()
-    compare("phase3 small-graph logits (card vs CPU)",
+    compare(f"phase3 small-graph {label} logits (card vs CPU)",
             model_gpu(data.x.to(dev), adj_gpu).cpu(), model_cpu(data.x, adj_cpu), torch.float32)
     for (name, p_gpu), p_cpu in zip(model_gpu.named_parameters(), model_cpu.parameters()):
-        compare(f"phase3 small-graph grad {name}", p_gpu.grad.cpu(), p_cpu.grad, torch.float32)
-    log("phase3 small-graph GCN logits and grads: card matches CPU")
+        compare(f"phase3 small-graph {label} grad {name}", p_gpu.grad.cpu(), p_cpu.grad, torch.float32)
+    log(f"phase3 small-graph {label} logits and grads: card matches CPU")
 
-    gat_cpu = GAT(data.num_features, 8, 4, heads=4, dropout=0.0, generator=torch.Generator().manual_seed(0))
-    gat_gpu = GAT(data.num_features, 8, 4, heads=4, dropout=0.0).to(dev)
-    gat_gpu.load_state_dict(gat_cpu.state_dict())
-    for model, adj, d in ((gat_cpu, adj_cpu, data), (gat_gpu, adj_gpu, data.to(dev))):
-        cross_entropy(model(d.x, adj), d.y, d.train_mask).backward()
-    compare("phase3 small-graph GAT logits (card vs CPU)",
-            gat_gpu(data.x.to(dev), adj_gpu).cpu(), gat_cpu(data.x, adj_cpu), torch.float32)
-    for (name, p_gpu), p_cpu in zip(gat_gpu.named_parameters(), gat_cpu.parameters()):
-        compare(f"phase3 small-graph GAT grad {name}", p_gpu.grad.cpu(), p_cpu.grad, torch.float32)
-    log("phase3 small-graph GAT logits and grads: card matches CPU")
 
+def kipf_band(dev, reorder: str = "auto") -> None:
     cfg = Config()
     cfg.model.name, cfg.model.hidden, cfg.model.dropout = "gcn", 16, 0.5
     cfg.optim.lr, cfg.optim.weight_decay = 0.01, 5e-4
-    cfg.train.epochs, cfg.train.eval_every = 200, 200
+    cfg.train.epochs, cfg.train.eval_every, cfg.train.reorder = 200, 200, reorder
     t0 = time.perf_counter()
     _, _, hist = fit(cfg, cora_like(seed=0), device=dev, verbose=False)
     acc = hist[-1]["test_acc"]
-    log(f"phase3 cora_like Kipf GCN: test_acc={acc:.4f} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase3 cora_like Kipf GCN reorder={reorder}: test_acc={acc:.4f} ({time.perf_counter() - t0:.1f} s)")
     if not 0.78 <= acc <= 0.88:
-        raise AssertionError(f"phase3: cora_like test accuracy {acc} outside [0.78, 0.88]")
+        raise AssertionError(f"phase3: cora_like test accuracy {acc} (reorder={reorder}) outside [0.78, 0.88]")
+
+
+def phase3(dev) -> None:
+    """Correctness at small size, the Cora accuracy bands, and the CLI."""
+    data = stochastic_block_model(num_nodes=400, num_classes=4, seed=3)
+    adj_cpu = data.to_adjacency(norm="sym")
+    gcn = lambda gen: GCN(data.num_features, 32, 4, num_layers=3, dropout=0.0, generator=gen)
+    card_vs_cpu("GCN", gcn, data, adj_cpu, dev)
+    card_vs_cpu("GAT", lambda gen: GAT(data.num_features, 8, 4, heads=4, dropout=0.0, generator=gen),
+                data, adj_cpu, dev)
+    adj_cluster = data.to_adjacency(norm="sym", reorder="cluster", block_rows=64)
+    before = blocked_matvec.launches
+    card_vs_cpu("blocked GCN", gcn, data.permute_nodes(adj_cluster.perm), adj_cluster, dev)
+    if blocked_matvec.launches - before != 9:  # 3 layers: forward, dx, the checked forward
+        raise AssertionError(f"phase3: blocked_matvec launched {blocked_matvec.launches - before} times, not 9")
+
+    kipf_band(dev)
+    kipf_band(dev, reorder="cluster")
 
     # The GAT Cora recipe; gnn_tpu.train.fit reaches 0.823 with it on the
     # CPU, and the band is that +- 0.05 (tests/test_torch_gat.py).
@@ -384,11 +491,11 @@ def phase3(dev) -> None:
     if not 0.773 <= acc <= 0.873:
         raise AssertionError(f"phase3: cora_like GAT test accuracy {acc} outside [0.773, 0.873]")
 
-    for model in ("gcn", "gat"):
-        rc = cli.main(["--dataset", "sbm", "--device", "cuda", "--model.name", model, "--train.epochs", "100"])
-        log(f"phase3 cli.main --model.name {model} returned {rc}")
+    for flags in (["--model.name", "gcn"], ["--model.name", "gat"], ["--train.reorder", "cluster"]):
+        rc = cli.main(["--dataset", "sbm", "--device", "cuda", *flags, "--train.epochs", "100"])
+        log(f"phase3 cli.main {' '.join(flags)} returned {rc}")
         if rc != 0:
-            raise AssertionError(f"phase3: cli.main --model.name {model} returned {rc}")
+            raise AssertionError(f"phase3: cli.main {' '.join(flags)} returned {rc}")
 
 
 def main() -> int:
@@ -407,8 +514,16 @@ def main() -> int:
     phase1_gat(adj, dev, checks)
     del adj
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clustered = clustered_edges()
+    log(f"clustered graph: {N_NODES} nodes, {clustered.shape[1]} undirected edges, "
+        f"generated in {time.perf_counter() - t0:.1f} s")
+    phase1_blocked(clustered, dev, checks)
     data = arxiv_scale_data(edges)
     by_path = {"gcn": phase2(data, dev), "gat": phase2_gat(data, dev)}
+    del data
+    cluster_runs = phase2_cluster(arxiv_scale_data(clustered), dev)
+    by_path.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})
     phase3(dev)
 
     # The row each kernel's times come from: its widest main-path shape.

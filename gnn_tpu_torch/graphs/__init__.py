@@ -1,9 +1,12 @@
-"""Graph data, host-side prep and the CSR adjacency the kernels read."""
+"""Graph data, host-side prep, the CSR adjacency the kernels read and the
+cluster-blocked layout."""
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
+from gnn_tpu_torch.graphs.blocked import BlockedLayout, cluster_order
 from gnn_tpu_torch.graphs.data import Data
 from gnn_tpu_torch.graphs.datasets import load_dataset
 from gnn_tpu_torch.graphs.generate import (
+    clustered_power_law,
     cora_like,
     karate_club,
     power_law,
@@ -21,8 +24,11 @@ from gnn_tpu_torch.graphs.transforms import (
 __all__ = [
     "Adjacency",
     "build_adjacency",
+    "BlockedLayout",
+    "cluster_order",
     "Data",
     "load_dataset",
+    "clustered_power_law",
     "cora_like",
     "karate_club",
     "power_law",

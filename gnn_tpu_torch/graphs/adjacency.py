@@ -13,18 +13,24 @@ for the CSR layout, which is what the hand-written kernels read:
   (``dst[t_perm]``, ``weight[t_perm]``), cached so that the backward pass
   gathers nothing per step.
 
-Index arrays are int32, as the kernels take them. The JAX package's relabelled
-and TPU-specific layouts (ELL, sorted-ELL, blocked, chunk plans) are not
-built: ``reorder=True``/``'cluster'`` and ``layout='ell'`` raise.
+``reorder='cluster'`` relabels the nodes by community and adds the
+cluster-packed block-diagonal layouts of :mod:`gnn_tpu_torch.graphs.blocked`
+(``blocked`` and its transpose ``t_blocked``); ``perm`` is then the new ->
+old node map. Index arrays are int32, as the kernels take them. The JAX
+package's degree-bucket relabelling (``reorder=True``) and its TPU layouts
+(ELL, sorted-ELL, chunk plans) are not built: they raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from gnn_tpu_torch.graphs.blocked import BlockedLayout
 
 __all__ = ["Adjacency", "build_adjacency"]
 
@@ -41,6 +47,9 @@ class Adjacency:
     t_weight: Optional[torch.Tensor]  # [E] float32: weight[t_perm]
     num_src_nodes: int
     num_dst_nodes: int
+    perm: Optional[torch.Tensor] = None  # [N] int32 new -> old node id (reorder='cluster')
+    blocked: Optional[BlockedLayout] = None  # intra-window blocks + remainder CSR
+    t_blocked: Optional[BlockedLayout] = None  # the same for the transpose (dx)
 
     @property
     def num_edges(self) -> int:
@@ -51,6 +60,7 @@ class Adjacency:
         return self.src.device
 
     def to(self, device) -> "Adjacency":
+        """A copy with every tensor and layout on ``device``."""
         move = lambda t: None if t is None else t.to(device)
         return dataclasses.replace(
             self,
@@ -61,9 +71,78 @@ class Adjacency:
             },
         )
 
+    def with_weight(self, weight: Optional[torch.Tensor]) -> "Adjacency":
+        """Swap the edge weights (in the dst-sorted edge order), re-baking the
+        cached transpose weights and the blocked layouts' constants. For
+        differentiable per-edge weights use ``ops.spmm_edge_weighted``."""
+        from gnn_tpu_torch.graphs.blocked import refresh_blocked_weights
+
+        refresh = lambda lay: None if lay is None else refresh_blocked_weights(lay, weight, self.num_edges)
+        return dataclasses.replace(
+            self,
+            weight=weight,
+            t_weight=None if weight is None else weight.index_select(0, self.t_perm.long()).contiguous(),
+            blocked=refresh(self.blocked),
+            t_blocked=refresh(self.t_blocked),
+        )
+
+    def transpose(self) -> "Adjacency":
+        """A^T as an Adjacency (edges re-sorted by the old src). The blocked
+        layouts swap, and their canonical edge ids map through the inverse
+        of ``t_perm``."""
+        inv = torch.empty_like(self.t_perm)
+        inv[self.t_perm.long()] = torch.arange(self.num_edges, dtype=inv.dtype, device=inv.device)
+
+        def remap(lay):
+            if lay is None:
+                return None
+            return dataclasses.replace(
+                lay,
+                diag_eid=inv[lay.diag_eid.long()],
+                rem_eid=inv[lay.rem_eid.long()],
+            )
+
+        idx = self.t_perm.long()
+        return Adjacency(
+            src=self.t_col,
+            dst=self.src.index_select(0, idx),
+            row_ptr=self.t_row_ptr,
+            weight=self.t_weight,
+            t_perm=inv,
+            t_row_ptr=self.row_ptr,
+            t_col=self.src,
+            t_weight=self.weight,
+            num_src_nodes=self.num_dst_nodes,
+            num_dst_nodes=self.num_src_nodes,
+            perm=self.perm,
+            blocked=remap(self.t_blocked),
+            t_blocked=remap(self.blocked),
+        )
+
 
 def _csr_offsets(sorted_ids: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(np.bincount(sorted_ids, minlength=n))])
+
+
+def _cluster_perm(src, dst, n, *, rows, labels, n_iters, seed, refine) -> np.ndarray:
+    """The community-packed node order (new -> old) of
+    ``gnn_tpu/graphs/adjacency.py:315-365``: label propagation capped at
+    ``rows`` (or the caller's labels), packing into windows, boundary
+    refinement, then a sort within windows by remainder degree."""
+    from gnn_tpu_torch import native
+    from gnn_tpu_torch.graphs.blocked import cluster_pack_order, refine_pack_order, refine_window_order
+
+    order0, rp0 = native.sort_edges_csr(src, dst, n)
+    if labels is None:
+        labels, _ = native.label_propagation(rp0, src[order0], max_size=rows, n_iters=n_iters, seed=seed)
+    else:
+        labels = np.asarray(labels, np.int64)
+        if labels.shape != (n,):
+            raise ValueError(f"cluster_labels must be [{n}], got {labels.shape}")
+    packed = refine_window_order(
+        cluster_pack_order(labels, rows), rows, row_ptr=rp0, col=src[order0], n_sweeps=refine
+    )
+    return refine_pack_order(packed, src, dst, rows)
 
 
 def build_adjacency(
@@ -75,17 +154,29 @@ def build_adjacency(
     num_dst_nodes: Optional[int] = None,
     layout: str = "auto",
     reorder=False,
+    block_rows: int = 256,
+    block_dtype: Optional[torch.dtype] = None,
+    rem_backend: str = "auto",
+    cluster_labels=None,
+    cluster_iters: int = 10,
+    cluster_seed: int = 0,
+    cluster_refine: int = 2,
 ) -> Adjacency:
     """Prepare an :class:`Adjacency` (on the CPU) from a COO edge list [2, E].
 
-    ``reorder`` of ``False`` or ``"auto"`` keeps the node ids: there is no
-    relabelled layout to build for. ``layout`` of ``"auto"`` or ``"csr"``
-    builds the CSR arrays, which is all the kernels read.
+    ``reorder`` of ``False`` or ``"auto"`` keeps the node ids. ``"cluster"``
+    relabels them into community-packed windows of ``block_rows`` nodes and
+    builds the blocked layouts (``block_dtype`` for the dense blocks, e.g.
+    ``torch.bfloat16``; ``rem_backend`` as in the JAX package, all values
+    build the same CSR remainder; ``cluster_*`` steer the label
+    propagation and the boundary refinement). The adjacency then speaks the
+    relabelled id space: feed ``x[adj.perm]`` (``Data.permute_nodes``).
+    ``layout`` of ``"auto"`` or ``"csr"`` builds the CSR arrays.
     """
-    if reorder not in (False, "auto"):
+    if reorder not in (False, "auto", "cluster"):
         raise NotImplementedError(
             f"build_adjacency(reorder={reorder!r}) is not ported yet "
-            "(ROADMAP Queue 1 items 9 and 12); use reorder=False"
+            "(ROADMAP Queue 1 item 9); use reorder=False or 'cluster'"
         )
     if layout not in ("auto", "csr"):
         raise NotImplementedError(
@@ -109,12 +200,33 @@ def build_adjacency(
     if max(num_src_nodes, num_dst_nodes, src.size) > np.iinfo(np.int32).max:
         raise ValueError("node and edge counts must fit int32 for the kernels")
 
+    perm = None
+    if reorder == "cluster":
+        if num_src_nodes != num_dst_nodes:
+            raise ValueError("reorder='cluster' needs a square adjacency")
+        perm = _cluster_perm(
+            src, dst, num_dst_nodes, rows=int(block_rows), labels=cluster_labels,
+            n_iters=cluster_iters, seed=cluster_seed, refine=cluster_refine,
+        )
+        old2new = np.empty(num_dst_nodes, np.int64)
+        old2new[perm] = np.arange(num_dst_nodes)
+        src, dst = old2new[src], old2new[dst]
+
     order = np.lexsort((src, dst))
     src, dst = src[order], dst[order]
     row_ptr = _csr_offsets(dst, num_dst_nodes)
     t_perm = np.lexsort((dst, src))
     t_row_ptr = _csr_offsets(src[t_perm], num_src_nodes)
     w = None if edge_weight is None else np.asarray(edge_weight, np.float32)[order]
+
+    blocked = t_blocked = None
+    if perm is not None:
+        from gnn_tpu_torch.graphs.blocked import build_blocked
+
+        kw = dict(edge_weight=w, rows=int(block_rows), block_dtype=block_dtype, rem_backend=rem_backend)
+        num_edges = len(src)
+        blocked = build_blocked(src, dst, np.arange(num_edges), num_dst_nodes, num_edges, **kw)
+        t_blocked = build_blocked(dst[t_perm], src[t_perm], t_perm, num_src_nodes, num_edges, **kw)
 
     i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
     f32 = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a))
@@ -129,4 +241,7 @@ def build_adjacency(
         t_weight=None if w is None else f32(w[t_perm]),
         num_src_nodes=int(num_src_nodes),
         num_dst_nodes=int(num_dst_nodes),
+        perm=None if perm is None else i32(perm),
+        blocked=blocked,
+        t_blocked=t_blocked,
     )

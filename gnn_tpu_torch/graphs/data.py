@@ -5,7 +5,7 @@ Port of ``gnn_tpu/graphs/data.py::Data``: node features ``x`` [N, F], COO
 train/val/test masks, held as torch tensors. ``to(device)`` moves them;
 ``to_adjacency`` runs the one-time host prep (exact ``gcn_norm`` and the CSR
 build) and returns an :class:`~gnn_tpu_torch.graphs.adjacency.Adjacency` on
-the CPU.
+the CPU; ``permute_nodes`` moves the node arrays into a relabelled order.
 """
 
 from __future__ import annotations
@@ -125,9 +125,16 @@ class Data:
         norm: Optional[str] = "sym",
         improved: bool = False,
         reorder=False,
+        **build_kwargs,
     ) -> Adjacency:
         """One-time host prep: COO -> normalized CSR Adjacency (on the CPU;
-        move it with ``.to(device)``)."""
+        move it with ``.to(device)``).
+
+        ``reorder='cluster'`` builds the community-packed blocked layouts;
+        its knobs (``block_rows``, ``block_dtype``, ...) pass through to
+        :func:`~gnn_tpu_torch.graphs.adjacency.build_adjacency`. The
+        adjacency then speaks a relabelled node space: pair it with
+        ``permute_nodes(adj.perm)``."""
         ei = self.edge_index.cpu().numpy()
         ew = None if self.edge_attr is None else self.edge_attr.cpu().numpy()
         if ew is not None and ew.ndim > 1:
@@ -139,4 +146,19 @@ class Data:
             )
         elif add_self_loops:
             ei, ew = transforms.add_remaining_self_loops(ei, ew, num_nodes=self.num_nodes)
-        return build_adjacency(ei, ew, num_nodes=self.num_nodes, reorder=reorder)
+        return build_adjacency(ei, ew, num_nodes=self.num_nodes, reorder=reorder, **build_kwargs)
+
+    def permute_nodes(self, perm) -> "Data":
+        """Relabel nodes so that new id i is old id ``perm[i]`` (new -> old):
+        x, y and the masks are gathered, ``edge_index`` is relabelled.
+        GNNs are permutation-equivariant, so training on the result is exact."""
+        perm = torch.as_tensor(perm).long().cpu()
+        old2new = torch.empty(self.num_nodes, dtype=torch.int64)
+        old2new[perm] = torch.arange(self.num_nodes)
+        out = copy.copy(self)
+        for name in ("x", "y", "train_mask", "val_mask", "test_mask"):
+            v = getattr(self, name)
+            if v is not None:
+                setattr(out, name, v.index_select(0, perm.to(v.device)))
+        out.edge_index = old2new.to(self.edge_index.device)[self.edge_index]
+        return out

@@ -10,6 +10,8 @@ arrays (compared in ``tests/test_torch_graphs.py``):
   statistics (2708 nodes, 5278 pairs, 7 classes, 1433 binary features, the
   140/500/1000 split);
 * :func:`power_law` — skewed destination popularity (ogbn-arxiv-like);
+* :func:`clustered_power_law` — community-structured power-law edges with
+  shuffled ids, at scale (the cluster-blocked layout's workload);
 * :func:`karate_club` — Zachary's karate club.
 """
 
@@ -20,7 +22,7 @@ import numpy as np
 from gnn_tpu_torch.graphs.data import Data
 from gnn_tpu_torch.graphs.transforms import coalesce, remove_self_loops, to_undirected
 
-__all__ = ["stochastic_block_model", "cora_like", "power_law", "karate_club"]
+__all__ = ["stochastic_block_model", "cora_like", "power_law", "clustered_power_law", "karate_club"]
 
 
 def stochastic_block_model(
@@ -155,6 +157,51 @@ def power_law(
     src = rng.integers(0, num_nodes, num_edges)
     dst = np.searchsorted(cdf, rng.random(num_edges))
     ei, _ = remove_self_loops(np.stack([src, dst]).astype(np.int64))
+    ei, _ = coalesce(ei, num_nodes=num_nodes)
+    return ei
+
+
+def clustered_power_law(
+    num_nodes: int,
+    num_edges: int,
+    *,
+    avg_community: int = 200,
+    intra_frac: float = 0.85,
+    alpha: float = 0.8,
+    seed: int = 0,
+    shuffle: bool = True,
+) -> np.ndarray:
+    """Community-structured edge list [2, E'] in O(E): lognormal community
+    sizes (mean ``avg_community``, at least 4); ``intra_frac`` of the edges
+    join two nodes of one community (power-law popularity for the
+    destination inside it), the rest are :func:`power_law` pairs.
+    ``shuffle=True`` scatters the node ids, so the communities are not
+    visible in the id order. Self loops removed, duplicates coalesced."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    total = 0
+    while total < num_nodes:
+        s = max(4, int(rng.lognormal(np.log(avg_community), 0.6)))
+        s = min(s, num_nodes - total)
+        sizes.append(s)
+        total += s
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    n_comm = len(sizes)
+
+    e_intra = int(num_edges * intra_frac)
+    sizes_arr = np.asarray(sizes, np.float64)
+    comm_of_edge = rng.choice(n_comm, e_intra, p=sizes_arr / sizes_arr.sum())
+    lo = starts[comm_of_edge]
+    sz = sizes_arr[comm_of_edge]
+    u = rng.random(e_intra) ** (1.0 / max(1.0 - alpha, 1e-3))
+    src_i = lo + (rng.random(e_intra) * sz).astype(np.int64)
+    dst_i = lo + (u * sz).astype(np.int64).clip(0, (sz - 1).astype(np.int64))
+
+    inter = power_law(num_nodes, num_edges - e_intra, alpha=alpha, seed=seed + 1)
+    ei = np.concatenate([np.stack([src_i, dst_i]), np.asarray(inter, np.int64)], axis=1)
+    if shuffle:
+        ei = rng.permutation(num_nodes)[ei]
+    ei, _ = remove_self_loops(ei)
     ei, _ = coalesce(ei, num_nodes=num_nodes)
     return ei
 

@@ -1,13 +1,20 @@
-"""Sparse x dense product (SpMM) over a CSR adjacency — the hot op.
+"""Sparse x dense product (SpMM) over an adjacency — the hot op.
 
 Port of ``gnn_tpu/ops/spmm.py::spmm``: out[d] = sum over in-edges
-e=(s -> d) of w_e * x[s], differentiable in x (dx = A^T g through the
-transpose CSR) and in the edge weights. On the card both directions run
-kernel K1 (``ops/cuda/spmm.py``); on the CPU its plain version.
+e=(s -> d) of w_e * x[s], differentiable in x (dx = A^T g) and, through
+:func:`spmm_edge_weighted`, in the edge weights. Two backends:
 
-The JAX package's layout backends ('ell', 'sorted', 'blocked') are TPU
-layouts that the port does not build (ROADMAP Queue 1 items 9 and 12); they
-raise here.
+* ``segment``: kernel K1 (``ops/cuda/spmm.py``) over the CSR, forward and
+  dx through the transpose CSR;
+* ``blocked`` (the ``'auto'`` choice when the adjacency was built with
+  ``reorder='cluster'``): :func:`~gnn_tpu_torch.graphs.blocked.blocked_matvec`
+  forward and over ``t_blocked`` for dx, the JAX package's
+  ``_spmm_blocked`` (``gnn_tpu/ops/spmm.py:137-158``). Its weights are
+  layout constants, with no dw, as in JAX.
+
+On the CPU the kernels' plain versions run. The JAX package's other layout
+backends ('ell', 'sorted') are TPU layouts the port does not build (ROADMAP
+Queue 1 item 9); they raise, as does the retired 'pallas'.
 """
 
 from __future__ import annotations
@@ -19,30 +26,54 @@ from gnn_tpu_torch.ops.cuda.spmm import spmm_csr
 
 __all__ = ["spmm", "spmm_edge_weighted"]
 
-_UNPORTED = ("ell", "sorted", "blocked", "pallas")
+_UNPORTED = ("ell", "sorted", "pallas")
+
+
+class _BlockedSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, adj):
+        from gnn_tpu_torch.graphs.blocked import blocked_matvec
+
+        ctx.adj = adj
+        return blocked_matvec(adj.blocked, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from gnn_tpu_torch.graphs.blocked import blocked_matvec
+
+        return blocked_matvec(ctx.adj.t_blocked, g.contiguous()), None
 
 
 def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     """out = A @ x, A given by ``adj`` (logically [N_dst, N_src]).
 
-    ``backend`` is accepted for signature parity with the JAX package only:
-    'auto' and 'segment' both run K1, and the TPU layouts raise.
+    ``backend``: 'auto' takes 'blocked' when the adjacency has the blocked
+    layouts and 'segment' (K1 over the CSR) otherwise.
     """
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
     if backend in _UNPORTED:
         raise NotImplementedError(
             f"spmm backend '{backend}' is a TPU layout the port does not build "
-            "(ROADMAP Queue 1 items 9 and 12); use 'auto' or 'segment'"
+            "(ROADMAP Queue 1 item 9); use 'auto', 'segment' or 'blocked'"
         )
-    if backend not in ("auto", "segment"):
+    if backend == "auto":
+        backend = "blocked" if adj.blocked is not None else "segment"
+    if backend == "blocked":
+        if adj.blocked is None or adj.t_blocked is None:
+            raise ValueError(
+                "spmm backend 'blocked' needs the cluster-packed layout: build the "
+                "adjacency with build_adjacency(..., reorder='cluster')"
+            )
+        return _BlockedSpmm.apply(x, adj)
+    if backend != "segment":
         raise ValueError(f"unknown spmm backend '{backend}'")
     return spmm_csr(adj, x)
 
 
 def spmm_edge_weighted(adj: Adjacency, weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """SpMM with caller-supplied differentiable per-edge weights, in the
-    adjacency's dst-sorted edge order."""
+    adjacency's dst-sorted edge order, over the CSR (K1)."""
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
     return spmm_csr(adj, x, weight)

@@ -1,13 +1,15 @@
 """Full-graph training loop.
 
 Port of the single-device full-graph branch of ``gnn_tpu/train/loop.py::fit``:
-one-time prep (exact ``gcn_norm`` and the CSR adjacency, moved to the
-device), then per epoch the model (GCN or GAT; GAT ignores the edge weights)
--> masked cross entropy -> backward -> Adam, with evaluation, metrics and
-early stopping on validation accuracy. Sampled minibatches, multi-device
-partitions, host-resident features, checkpoints, relabelled layouts and the
-SAGE, GIN and EncoderGCN models are not ported yet: their settings raise
-``NotImplementedError`` (ROADMAP Queue 1).
+one-time prep (exact ``gcn_norm`` and the CSR adjacency, with the
+cluster-blocked layouts and relabelled nodes under
+``train.reorder='cluster'``, moved to the device), then per epoch the model
+(GCN or GAT; GAT ignores the edge weights) -> masked cross entropy ->
+backward -> Adam, with evaluation, metrics and early stopping on validation
+accuracy. Sampled minibatches, multi-device partitions, host-resident
+features, checkpoints, the degree-bucket relabelling
+(``train.reorder='true'``) and the SAGE, GIN and EncoderGCN models are not
+ported yet: their settings raise ``NotImplementedError`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -77,12 +79,12 @@ def _check_supported(cfg: Config) -> None:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet")
     reorder = str(t.reorder).lower()
-    if reorder in ("true", "cluster"):
+    if reorder == "true":
         raise NotImplementedError(
-            f"train.reorder='{t.reorder}' is not ported yet (ROADMAP Queue 1 "
-            "items 9 and 12); use 'auto' or 'false'"
+            "train.reorder='true' (the degree-bucket relabelling) is not ported yet "
+            "(ROADMAP Queue 1 item 9); use 'auto', 'false' or 'cluster'"
         )
-    if reorder not in ("auto", "false"):
+    if reorder not in ("auto", "false", "cluster"):
         raise ValueError(f"unknown train.reorder '{t.reorder}'")
 
 
@@ -128,7 +130,14 @@ def fit(
         )
     model = model.to(device)
     model.train()
-    adj = data.to_adjacency(norm="sym").to(device)
+    # train.reorder='cluster': relabel the nodes into community-packed
+    # windows for the blocked layout (exact: GNNs are permutation-
+    # equivariant; features, labels and masks move with the nodes).
+    reorder = "cluster" if str(cfg.train.reorder).lower() == "cluster" else False
+    adj = data.to_adjacency(norm="sym", reorder=reorder)
+    if adj.perm is not None:
+        data = data.permute_nodes(adj.perm)
+    adj = adj.to(device)
     data = data.to(device)
     opt = build_optimizer(cfg, model.parameters())
     dropout_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)

@@ -140,3 +140,52 @@ def test_gat_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-4)
     for a, b in zip(g_g, g_c):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _clustered_adjacency(block_dtype=None, n=3000):
+    """A clustered power-law graph with GCN weights through reorder='cluster'
+    (256-row windows), on the CPU."""
+    ei, _ = tg.to_undirected(tg.clustered_power_law(n, 30000, avg_community=100, seed=0), num_nodes=n)
+    ei, w = tg.gcn_norm(ei, num_nodes=n)
+    return tg.build_adjacency(ei, w, num_nodes=n, reorder="cluster", block_dtype=block_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_dtype", [None, torch.bfloat16], ids=["f32-blocks", "bf16-blocks"])
+def test_blocked_matvec_matches_plain_version_on_card(cuda_device, block_dtype):
+    """blocked_matvec (block product, then K1 over the remainder CSR)
+    forward and transpose against its plain version on the card: the same
+    block product, the remainder through K1's plain version, so rtol=atol=1e-4
+    as for K1 in float32. One K1 launch per product."""
+    from gnn_tpu_torch.graphs.blocked import blocked_matvec, blocked_matvec_plain
+
+    adj = _clustered_adjacency(block_dtype).to(cuda_device)
+    assert adj.blocked.num_rem_edges > 0 and adj.blocked.num_dense_edges > 0
+    k1, bm = csr_spmm.launches, blocked_matvec.launches
+    for F in (64, 40):
+        for lay in (adj.blocked, adj.t_blocked):
+            x = torch.randn(adj.num_dst_nodes, F, device=cuda_device)
+            got = blocked_matvec(lay, x)
+            assert got.shape == x.shape and got.dtype == torch.float32
+            torch.testing.assert_close(got, blocked_matvec_plain(lay, x), rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+    assert (csr_spmm.launches - k1, blocked_matvec.launches - bm) == (4, 4)
+
+
+@pytest.mark.gpu
+def test_blocked_spmm_backward_on_card_matches_cpu(cuda_device):
+    """The blocked spmm's forward and dx (blocked_matvec over t_blocked) on
+    the card against the CPU path; the CSR K1 on the card agrees too."""
+    adj = _clustered_adjacency()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(adj.num_dst_nodes, 32)).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=(adj.num_dst_nodes, 32)).astype(np.float32))
+    outs = []
+    for a, backend in ((adj, "auto"), (adj.to(cuda_device), "auto"), (adj.to(cuda_device), "segment")):
+        xx = x.detach().to(a.device).requires_grad_()
+        out = tops.spmm(a, xx, backend=backend)
+        (out ** 2 * ct.to(a.device)).sum().backward()
+        outs.append((out.detach().cpu(), xx.grad.cpu()))
+    for out, grad in outs[1:]:
+        torch.testing.assert_close(out, outs[0][0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(grad, outs[0][1], rtol=1e-4, atol=1e-4)

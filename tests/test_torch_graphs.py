@@ -41,8 +41,12 @@ def _assert_same_data(jd, td):
          lambda: tg.stochastic_block_model(300, 3, seed=7)),
         (lambda: jgen.cora_like(seed=0), lambda: tg.cora_like(seed=0)),
         (jgen.karate_club, tg.karate_club),
+        (lambda: jg.Data(edge_index=jgen.clustered_power_law(3000, 20000, avg_community=60, seed=4),
+                         num_nodes=3000),
+         lambda: tg.Data(edge_index=tg.clustered_power_law(3000, 20000, avg_community=60, seed=4),
+                         num_nodes=3000)),
     ],
-    ids=["sbm", "cora_like", "karate"],
+    ids=["sbm", "cora_like", "karate", "clustered_power_law"],
 )
 def test_generators_identical(make_jax, make_torch):
     _assert_same_data(make_jax(), make_torch())
@@ -154,9 +158,8 @@ def test_data_to_adjacency_matches(rng):
 
 def test_unported_options_raise(rng):
     ei, n = _random_edges(rng)
-    for reorder in (True, "cluster"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.build_adjacency(ei, num_nodes=n, reorder=reorder)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tg.build_adjacency(ei, num_nodes=n, reorder=True)
     with pytest.raises(NotImplementedError, match="CSR only"):
         tg.build_adjacency(ei, num_nodes=n, layout="ell")
     for name in ("cora", "ogbn-arxiv"):
@@ -180,7 +183,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys, gnn_tpu_torch, gnn_tpu_torch.train.cli, gnn_tpu_torch.ops.cuda, "
         "gnn_tpu_torch.ops.cuda.spmm_heads, gnn_tpu_torch.ops.gather, gnn_tpu_torch.mp.gat, "
-        "gnn_tpu_torch.models.gat; "
+        "gnn_tpu_torch.models.gat, gnn_tpu_torch.native, gnn_tpu_torch.graphs.blocked; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m.startswith('gnn_tpu.') or m == 'gnn_tpu' for m in sys.modules)"
     )

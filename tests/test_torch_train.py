@@ -95,7 +95,6 @@ def test_fit_on_cuda_raises_without_a_card(monkeypatch):
         {"train.host_features": True},
         {"train.checkpoint_dir": "ckpt"},
         {"train.reorder": "true"},
-        {"train.reorder": "cluster"},
         {"model.name": "gat", "train.batch_size": 64},
         {"model.name": "sage"},
         {"model.name": "encoder_gcn"},

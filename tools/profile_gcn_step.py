@@ -1,11 +1,16 @@
 """Where a GCN or GAT training step's time goes on one NVIDIA GPU.
 
-    python3 tools/profile_gcn_step.py [--model gcn|gat] [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
+    python3 tools/profile_gcn_step.py [--model gcn|gat] [--graph powerlaw|clustered]
+        [--reorder auto|cluster] [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
 
-Builds the arxiv-scale graph and the model of ``chip_smoke.py`` phase 2
-(``--model gcn``, the default: GCN 3 x 256, 40 classes, dropout 0.5, Adam lr
-0.01) or phase 2-gat (``--model gat``: GAT 2 layers, 8 heads x 32, 1 output
-head, dropout 0.5, Adam lr 0.005) and runs ``fit``'s training step on it:
+Builds the arxiv-scale graph of ``chip_smoke.py`` (``--graph powerlaw``, the
+default, phases 2 and 2-gat; ``--graph clustered``, phase 2-cluster) and the
+model of phase 2 (``--model gcn``, the default: GCN 3 x 256, 40 classes,
+dropout 0.5, Adam lr 0.01) or phase 2-gat (``--model gat``: GAT 2 layers, 8
+heads x 32, 1 output head, dropout 0.5, Adam lr 0.005); ``--reorder
+cluster`` relabels the nodes and builds the cluster-blocked layout, as
+``fit`` does under ``train.reorder='cluster'``. It runs ``fit``'s training
+step on it:
 the model with dropout -> masked cross entropy, backward, Adam. After
 ``--warmup`` steps it times ``--timed`` untraced steps with CUDA events,
 then traces ``--steps`` steps with ``torch.profiler``. It prints:
@@ -15,7 +20,10 @@ then traces ``--steps`` steps with ``torch.profiler``. It prints:
   activity (kernels, copies, memsets) in the trace, so nothing is counted
   twice;
 - the idle share, 1 - busy / traced window;
-- device ms, launches and share of busy time per kernel name.
+- device ms, launches and share of busy time per kernel name;
+- with ``--reorder cluster``, the busy time split into the block product
+  (the kernels inside ``blocked_matvec``'s ``blocked_matvec.diag`` range:
+  pad, bmm, cast), K1 (``csr_spmm_kernel``: the remainder) and the rest.
 
 ``--trace`` also writes a Chrome trace to PATH. It needs a CUDA device.
 """
@@ -34,8 +42,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    N_NODES, arxiv_gat_config, arxiv_gcn_config, arxiv_scale_data, arxiv_scale_edges, log,
-    nvidia_smi,
+    N_NODES, arxiv_gat_config, arxiv_gcn_config, arxiv_scale_data, arxiv_scale_edges, clustered_edges,
+    log, nvidia_smi,
 )
 from gnn_tpu_torch.nn import cross_entropy  # noqa: E402
 from gnn_tpu_torch.train.loop import build_model, build_optimizer  # noqa: E402
@@ -58,6 +66,30 @@ def union_us(intervals) -> float:
     return total
 
 
+def split_blocked(prof_events, kernels, steps: int) -> dict:
+    """Device ms per step of the block product (kernels inside a
+    ``blocked_matvec.diag`` annotation range on the device), of K1 and of the
+    rest."""
+    ranges = [
+        (e.time_range.start, e.time_range.end) for e in prof_events
+        if e.device_type in DEVICE_TYPES and getattr(e, "is_user_annotation", False)
+        and e.name == "blocked_matvec.diag"
+    ]
+    if not ranges:
+        return {}
+    out = {"block product (pad, bmm, cast)": 0.0, "K1 csr_spmm_kernel (remainder)": 0.0, "rest": 0.0}
+    for e in kernels:
+        start, end = e.time_range.start, e.time_range.end
+        if any(lo <= start and end <= hi for lo, hi in ranges):
+            key = "block product (pad, bmm, cast)"
+        elif "csr_spmm_kernel" in e.name:
+            key = "K1 csr_spmm_kernel (remainder)"
+        else:
+            key = "rest"
+        out[key] += (end - start) / 1e3 / steps
+    return out
+
+
 def timed_ms(step, n: int) -> float:
     """Device-timeline ms per step over ``n`` steps, by CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -73,6 +105,8 @@ def timed_ms(step, n: int) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("gcn", "gat"), default="gcn")
+    ap.add_argument("--graph", choices=("powerlaw", "clustered"), default="powerlaw")
+    ap.add_argument("--reorder", choices=("auto", "cluster"), default="auto")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--timed", type=int, default=10)
     ap.add_argument("--steps", type=int, default=5)
@@ -85,18 +119,22 @@ def main(argv=None) -> int:
     log(nvidia_smi())
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}")
 
-    data = arxiv_scale_data(arxiv_scale_edges())
+    data = arxiv_scale_data(arxiv_scale_edges() if args.graph == "powerlaw" else clustered_edges())
     cfg = arxiv_gcn_config() if args.model == "gcn" else arxiv_gat_config()
     model = build_model(
         cfg, data.num_features, int(data.y.max()) + 1,
         torch.Generator().manual_seed(cfg.train.seed),
     ).to(dev)
     model.train()
-    adj = data.to_adjacency(norm="sym").to(dev)
+    adj = data.to_adjacency(norm="sym", reorder="cluster" if args.reorder == "cluster" else False)
+    if adj.perm is not None:
+        data = data.permute_nodes(adj.perm)
+    adj = adj.to(dev)
     data = data.to(dev)
     opt = build_optimizer(cfg, model.parameters())
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
-    log(f"graph: {N_NODES} nodes, {adj.num_edges} edges with self loops; model {args.model}")
+    log(f"graph: {args.graph}, {N_NODES} nodes, {adj.num_edges} edges with self loops; model {args.model}; "
+        f"reorder {args.reorder}")
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -114,8 +152,9 @@ def main(argv=None) -> int:
 
     # User annotations (e.g. "Optimizer.step#Adam.step") span the gaps between
     # the kernels they cover, so only real device activity counts.
+    events = prof.events()
     device_events = [
-        e for e in prof.events()
+        e for e in events
         if e.device_type in DEVICE_TYPES and not getattr(e, "is_user_annotation", False)
     ]
     if not device_events:
@@ -131,6 +170,12 @@ def main(argv=None) -> int:
     log(f"{'device ms/step':>14s} {'launches/step':>13s} {'share':>6s}  kernel")
     for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0]):
         log(f"{ms:14.3f} {count / args.steps:13.1f} {ms / busy:6.1%}  {name[:100]}")
+    if args.reorder == "cluster":
+        split = split_blocked(events, device_events, args.steps)
+        if not split:
+            log("blocked split: not measured (the trace holds no device-side blocked_matvec.diag range)")
+        for key, ms in split.items():
+            log(f"blocked split: {key}: {ms:.3f} ms/step ({ms / busy:.1%} of busy)")
     return 0
 
 
