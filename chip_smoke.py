@@ -4,20 +4,23 @@
 
 Phase 0 builds the hand-written kernels from ``gnn_tpu_torch/csrc`` with
 nvcc (one process per source, all at once) and the C++ graph core with g++,
-and prints the card, its power limit and the build times. Phase 1 holds each
+and prints the card, its power limit and the build times; a register spill
+that ptxas reports fails it. Phase 1 holds each
 kernel against its plain PyTorch version on an ogbn-arxiv-scale graph (power
 law, 169,343 nodes, about 2.5 M normalized edges with self loops), float32
 and bfloat16, and times both with CUDA events: K1 and K2 at F in {40, 128,
 256} (the GCN widths), then the GAT shapes: K3 forward and transpose at (H,
 F) = (8, 32) and (1, 40), K2 at widths 8 and 1 (the softmax denominator), K1
-over ``col = t_perm`` at width 8 (the VJP of the source gather). Phase
+over ``col = t_perm`` at width 8 (the VJP of the source gather); each
+kernel call is also repeated and must give the same bits. Phase
 1-blocked builds the clustered arxiv-scale graph (``clustered_power_law``,
 the recipe of bench.py's blocked workload) with ``reorder='cluster'`` twice,
 at 256-row float32 and 512-row bfloat16 windows, and holds
 ``blocked_matvec`` (the block product plus K1 over the remainder CSR)
 forward and transpose at F in {256, 40} against its plain version, the
 float32 one also against K1 over the whole relabelled CSR, with times of all
-three. Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
+three; a line then sets K1's F=256 time on the two graphs beside their edge
+counts and longest rows. Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
 classes) for 5 epochs on the power-law graph through
 ``gnn_tpu_torch.train.fit``;
 phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
@@ -39,6 +42,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -166,10 +170,22 @@ def phase0() -> dict:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", info["log"])]
+    if any(spills):
+        raise AssertionError(f"ptxas reports register spills: {sum(spills)} bytes")
+    if info["built"]:
+        log(f"ptxas: {len(spills) // 2} kernels, no spills")
     t0 = time.perf_counter()
     native.load()
     log(f"graph core (g++) build and load: {time.perf_counter() - t0:.2f} s")
     return info
+
+
+def check_repeat(label: str, kernel, args, got: torch.Tensor) -> None:
+    """A second call gives the same bits: the kernels sum in a fixed order,
+    with no atomics."""
+    if not torch.equal(kernel(*args), got):
+        raise AssertionError(f"{label}: a second call gave other bits")
 
 
 def record(results, name, what, tag, dtype, err, ms, plain_ms, **shape) -> None:
@@ -180,8 +196,9 @@ def record(results, name, what, tag, dtype, err, ms, plain_ms, **shape) -> None:
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
 
 
-def phase1(adj, dev, results) -> None:
-    """K1 and K2 against their plain versions at the GCN's shapes."""
+def phase1(adj, dev, results, k1_by_graph) -> None:
+    """K1 and K2 against their plain versions at the GCN's shapes, and
+    against a second call of themselves."""
     gen = torch.Generator(device=dev).manual_seed(0)
     for F in WIDTHS:
         x32 = torch.randn(N_NODES, F, generator=gen, device=dev)
@@ -205,6 +222,11 @@ def phase1(adj, dev, results) -> None:
             seg = segment_sum_csr(adj.row_ptr, msg)
             e_seg = compare(f"segment_sum_csr {tag}", seg, segment_sum_csr_plain(adj.row_ptr, msg), dtype)
 
+            check_repeat(f"csr_spmm fwd {tag}", csr_spmm, (adj.row_ptr, adj.src, adj.weight, x), fwd)
+            check_repeat(f"csr_spmm dx {tag}", csr_spmm, (adj.t_row_ptr, adj.t_col, adj.t_weight, g), xr.grad)
+            check_repeat(f"segment_sum_csr {tag}", segment_sum_csr, (adj.row_ptr, msg), seg)
+            log(f"phase1 bitwise repeat {tag}: K1 fwd, K1 dx, K2 equal")
+
             t = {
                 "fwd": (time_ms(lambda: csr_spmm(adj.row_ptr, adj.src, adj.weight, x)),
                         time_ms(lambda: csr_spmm_plain(adj.row_ptr, adj.src, adj.weight, x))),
@@ -219,6 +241,8 @@ def phase1(adj, dev, results) -> None:
                 ("segment_sum_csr", "[E,F] -> [N,F]", e_seg, "seg"),
             ):
                 record(results, name, what, tag, dtype, err, *t[key], F=F)
+            if F == 256 and dtype == torch.float32:
+                k1_by_graph["power-law"] = graph_stats(adj, t["fwd"][0])
 
             if dtype == torch.float32:
                 w = adj.weight.clone().requires_grad_()
@@ -233,7 +257,11 @@ def phase1(adj, dev, results) -> None:
         torch.cuda.empty_cache()
 
 
-def phase1_blocked(edges: np.ndarray, dev, results) -> None:
+def graph_stats(adj, k1_ms: float) -> dict:
+    return dict(edges=adj.num_edges, max_in_degree=int(adj.row_ptr.diff().max()), k1_ms=k1_ms)
+
+
+def phase1_blocked(edges: np.ndarray, dev, results, k1_by_graph) -> None:
     """blocked_matvec (the block product, then K1 over the remainder CSR)
     against its plain version, forward and transpose, at the GCN's widths;
     the float32 configuration also against K1 over the whole relabelled CSR
@@ -275,9 +303,13 @@ def phase1_blocked(edges: np.ndarray, dev, results) -> None:
                 line = (f"phase1-blocked {tag:28s} max_abs_err={err:.3e} blocked_ms={ms:.4f} "
                         f"plain_ms={plain_ms:.4f} bmm_ms={diag_ms:.4f} k1_remainder_ms={rem_ms:.4f}")
                 if block_dtype is None:
-                    err_csr = compare(f"blocked_matvec vs full-CSR K1 {tag}", got, csr_spmm(*csr, v), torch.float32)
+                    full = csr_spmm(*csr, v)
+                    err_csr = compare(f"blocked_matvec vs full-CSR K1 {tag}", got, full, torch.float32)
+                    check_repeat(f"full-CSR K1 {tag}", csr_spmm, (*csr, v), full)
                     csr_ms = time_ms(lambda: csr_spmm(*csr, v))
                     line += f" k1_full_csr_ms={csr_ms:.4f} err_vs_full_csr={err_csr:.3e}"
+                    if F == 256 and lay is adj.blocked:
+                        k1_by_graph["clustered"] = graph_stats(adj, csr_ms)
                 log(line)
                 results["csr_spmm"]["rows"].append(dict(
                     F=F, dtype="torch.float32", what=f"blocked {what} {cfg}", err=err, ms=ms, plain_ms=plain_ms,
@@ -328,9 +360,12 @@ def phase1_gat(adj, dev, results) -> None:
                  (adj.t_row_ptr, adj.t_perm, None, ge)),
             )
             for name, what, kernel, plain, args in cases:
-                err = compare(f"{name} {what} {tag}", kernel(*args), plain(*args), dtype)
+                got = kernel(*args)
+                err = compare(f"{name} {what} {tag}", got, plain(*args), dtype)
+                check_repeat(f"{name} {what} {tag}", kernel, args, got)
                 record(results, name, what, tag, dtype, err,
                        time_ms(lambda: kernel(*args)), time_ms(lambda: plain(*args)), H=H, F=F)
+            log(f"phase1 bitwise repeat {tag}: K3 fwd, K3 dh, K2, K1 equal")
         del ex, alpha, t_alpha, x32, g32, ge32
         torch.cuda.empty_cache()
 
@@ -510,7 +545,8 @@ def main() -> int:
         f"prep {time.perf_counter() - t0:.1f} s")
 
     checks = {name: {"errs": [], "rows": []} for name in KERNELS}
-    phase1(adj, dev, checks)
+    k1_by_graph = {}
+    phase1(adj, dev, checks, k1_by_graph)
     phase1_gat(adj, dev, checks)
     del adj
     torch.cuda.empty_cache()
@@ -518,7 +554,12 @@ def main() -> int:
     clustered = clustered_edges()
     log(f"clustered graph: {N_NODES} nodes, {clustered.shape[1]} undirected edges, "
         f"generated in {time.perf_counter() - t0:.1f} s")
-    phase1_blocked(clustered, dev, checks)
+    phase1_blocked(clustered, dev, checks, k1_by_graph)
+    # K1's time should follow the edge count, not the longest row.
+    pl, cl = k1_by_graph["power-law"], k1_by_graph["clustered"]
+    log(f"phase1 K1 F=256 fwd float32 by graph: power-law {json.dumps(pl)}, clustered {json.dumps(cl)}; "
+        f"time ratio {pl['k1_ms'] / cl['k1_ms']:.3f}, edge ratio {pl['edges'] / cl['edges']:.3f}, "
+        f"max in-degree ratio {pl['max_in_degree'] / cl['max_in_degree']:.3f}")
     data = arxiv_scale_data(edges)
     by_path = {"gcn": phase2(data, dev), "gat": phase2_gat(data, dev)}
     del data

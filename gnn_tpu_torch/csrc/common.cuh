@@ -1,5 +1,8 @@
 // Shared helpers for the CSR kernels: vector loads and stores that widen
-// to float32 for accumulation, and the warp-per-row launch geometry.
+// to float32 for accumulation, and the launch geometry: 8 warps a block for
+// all three; one warp per row for K3 (gat_spmm.cu), merge-path tiles of
+// row ends and edges for K1 and K2 (csr_reduce.cuh). None of them uses
+// tensor cores: they move 4-8 bytes for every 1-2 flops.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,9 +13,9 @@ namespace gnn {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
-// Edges whose feature loads a warp keeps in flight at once. A power-law hub
-// row is one warp's serial walk; without this it pays one full load latency
-// per edge.
+// Edges whose feature loads K3's warp keeps in flight at once. A power-law
+// hub row is one warp's serial walk there; without this it pays one full
+// load latency per edge.
 constexpr int kUnroll = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
 

@@ -6,136 +6,49 @@
 // the gather, the scale and the per-row reduction are one kernel, so the
 // [E, F] message array is never written to device memory. The same kernel
 // runs the backward dx = A^T g over the transpose CSR (t_row_ptr, dst[t_perm],
-// weight[t_perm]).
+// weight[t_perm]), the source-gather VJP (col = t_perm, w = null) and the
+// blocked layout's remainder CSR.
 //
-// Design: one warp per output row; lanes stride over the feature axis, four
-// features a lane with one vector load where F % 4 == 0 and the rows are
-// aligned, else one feature a lane. The warp reads 32 edge indices and
-// weights at once and broadcasts them with shuffles, then keeps kUnroll
-// gathered rows in flight before adding them in edge order. Sums are
-// float32 in registers and each output row is written once: no atomics, so
-// the result is deterministic. bfloat16 inputs are widened with the
-// intrinsics.
+// Design: csr_reduce.cuh with idx(k) = col[k] -- merge-path tiles of a fixed
+// number of row ends and edges per warp, col and w staged through shared
+// memory with cp.async, lane groups sized to F, a fixup launch for rows cut
+// by a tile boundary; float32 sums, no atomics, deterministic.
 //
-// What bounds it on an H100: in principle the E * F gathered feature bytes
-// of x (random rows, served partly from the 50 MB L2), not arithmetic (2
-// flops a gathered element). In practice, on a power-law graph, the largest
-// row: one warp walks all of a hub's edges (21,305 at ogbn-arxiv scale) with
-// only kUnroll row loads in flight, so the kernel's time is about
-// max_degree / kUnroll load latencies per 128-feature chunk while the rest
-// of the card idles. Splitting long rows across warps (or merge-path) is
-// the next step.
+// What bounds it on an H100: the E * F gathered feature bytes of x (random
+// rows; at ogbn-arxiv scale x is 173 MB at F=256, over the 50 MB L2) plus 8
+// bytes of col and w an edge: 2.54 GB at F=256, a 0.76 ms floor at 3.35 TB/s;
+// at widths 8 and 1 the 10-20 MB of indices and an L2-resident x, ~0.01 ms.
+// The warp-per-row kernel this replaces followed the largest row instead (a
+// 21,305-edge hub walked by one warp: 7.9 ms at F=256, 1.8 ms at width 1);
+// with merge-path tiles no warp walks more than kWarpItems items, so the time
+// follows the edge count.
 
-#include "common.cuh"
-
-namespace gnn {
-
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-csr_spmm_kernel(const int32_t* __restrict__ row_ptr,
-                const int32_t* __restrict__ col,
-                const float* __restrict__ w,  // may be null: all ones
-                const T* __restrict__ x, T* __restrict__ out, int n_rows,
-                int F) {
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (row >= n_rows) return;  // whole warp leaves together
-  const int begin = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  constexpr int kPerLane = kVec ? 4 : 1;
-  constexpr int kStep = kWarp * kPerLane;
-  for (int f0 = 0; f0 < F; f0 += kStep) {
-    const int f = f0 + lane * kPerLane;
-    const bool active = f < F;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int base = begin; base < end; base += kWarp) {
-      const int k = base + lane;
-      int c = 0;
-      float wk = 0.f;
-      if (k < end) {
-        c = __ldg(col + k);
-        wk = w ? __ldg(w + k) : 1.f;
-      }
-      const int n = min(kWarp, end - base);
-      for (int j = 0; j < n; j += kUnroll) {
-        // Issue kUnroll independent row loads before the first add, so a
-        // long row waits on one load latency per kUnroll edges, not per edge.
-        float4 v[kUnroll];
-        float wv[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int cj = __shfl_sync(kFullMask, c, j + u);
-          wv[u] = __shfl_sync(kFullMask, wk, j + u);
-          v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (active && j + u < n) {
-            const T* src = x + static_cast<int64_t>(cj) * F + f;
-            if (kVec) {
-              v[u] = load4(src);
-            } else {
-              v[u].x = load1(src);
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (j + u < n) {  // edge order, as before: same sums bit for bit
-            if (kVec) {
-              fma4(acc, wv[u], v[u]);
-            } else {
-              acc.x = fmaf(wv[u], v[u].x, acc.x);
-            }
-          }
-        }
-      }
-    }
-    if (active) {
-      T* dst = out + static_cast<int64_t>(row) * F + f;
-      if (kVec) {
-        store4(dst, acc);
-      } else {
-        store1(dst, acc.x);
-      }
-    }
-  }
-}
-
-template <typename T>
-int launch_csr_spmm(const void* row_ptr, const void* col, const void* w,
-                    const void* x, void* out, int n_rows, int F, int vec,
-                    void* stream) {
-  const dim3 grid(blocks_for_rows(n_rows));
-  const dim3 block(kWarp * kWarpsPerBlock);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto rp = static_cast<const int32_t*>(row_ptr);
-  auto c = static_cast<const int32_t*>(col);
-  auto wp = static_cast<const float*>(w);
-  auto xp = static_cast<const T*>(x);
-  auto op = static_cast<T*>(out);
-  if (vec) {
-    csr_spmm_kernel<T, true><<<grid, block, 0, s>>>(rp, c, wp, xp, op, n_rows, F);
-  } else {
-    csr_spmm_kernel<T, false><<<grid, block, 0, s>>>(rp, c, wp, xp, op, n_rows, F);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace gnn
+#include "csr_reduce.cuh"
 
 extern "C" {
 
-// Each entry enqueues one launch on `stream` and returns cudaGetLastError().
+// Each entry enqueues the reduction and its fixup on `stream` and returns
+// cudaGetLastError(). part / part_row: scratch of gnn_csr_reduce_tiles tiles.
 int gnn_csr_spmm_f32(const void* row_ptr, const void* col, const void* w,
-                     const void* x, void* out, int n_rows, int F, int vec,
-                     void* stream) {
-  return gnn::launch_csr_spmm<float>(row_ptr, col, w, x, out, n_rows, F, vec,
-                                     stream);
+                     const void* x, void* out, void* part, void* part_row,
+                     int n_rows, int n_edges, int F, int vec, void* stream) {
+  return gnn::launch_csr_reduce<float, true>(row_ptr, col, w, x, out, part, part_row,
+                                             n_rows, n_edges, F, vec, stream);
 }
 
 int gnn_csr_spmm_bf16(const void* row_ptr, const void* col, const void* w,
-                      const void* x, void* out, int n_rows, int F, int vec,
-                      void* stream) {
-  return gnn::launch_csr_spmm<__nv_bfloat16>(row_ptr, col, w, x, out, n_rows,
-                                             F, vec, stream);
+                      const void* x, void* out, void* part, void* part_row,
+                      int n_rows, int n_edges, int F, int vec, void* stream) {
+  return gnn::launch_csr_reduce<__nv_bfloat16, true>(row_ptr, col, w, x, out, part,
+                                                     part_row, n_rows, n_edges, F,
+                                                     vec, stream);
+}
+
+// Warp tiles of K1 and K2 over a CSR of n_rows rows and n_edges edges (the
+// scratch holds 2 * tiles partials of F float32 and 2 * tiles rows); -1 where
+// n_rows + n_edges does not fit the kernels' int32 merge coordinates.
+int gnn_csr_reduce_tiles(int n_rows, int n_edges) {
+  return gnn::csr_reduce_tiles(n_rows, n_edges);
 }
 
 }  // extern "C"

@@ -39,12 +39,14 @@ _info: dict = {}
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    # row_ptr, col, w, x, out, n_rows, F, vec, stream
-    "gnn_csr_spmm_f32": [_VOID] * 5 + [_INT] * 3 + [_VOID],
-    "gnn_csr_spmm_bf16": [_VOID] * 5 + [_INT] * 3 + [_VOID],
-    # row_ptr, msg, out, n_rows, F, vec, stream
-    "gnn_segment_sum_f32": [_VOID] * 3 + [_INT] * 3 + [_VOID],
-    "gnn_segment_sum_bf16": [_VOID] * 3 + [_INT] * 3 + [_VOID],
+    # row_ptr, col, w, x, out, part, part_row, n_rows, n_edges, F, vec, stream
+    "gnn_csr_spmm_f32": [_VOID] * 7 + [_INT] * 4 + [_VOID],
+    "gnn_csr_spmm_bf16": [_VOID] * 7 + [_INT] * 4 + [_VOID],
+    # row_ptr, msg, out, part, part_row, n_rows, n_edges, F, vec, stream
+    "gnn_segment_sum_f32": [_VOID] * 5 + [_INT] * 4 + [_VOID],
+    "gnn_segment_sum_bf16": [_VOID] * 5 + [_INT] * 4 + [_VOID],
+    # n_rows, n_edges -> warp tiles of K1 / K2's scratch
+    "gnn_csr_reduce_tiles": [_INT] * 2,
     # row_ptr, col, w, x, out, n_rows, H, F, vec, stream
     "gnn_gat_spmm_f32": [_VOID] * 5 + [_INT] * 4 + [_VOID],
     "gnn_gat_spmm_bf16": [_VOID] * 5 + [_INT] * 4 + [_VOID],

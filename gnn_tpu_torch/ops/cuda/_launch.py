@@ -49,6 +49,17 @@ def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def reduce_scratch(lib, n_rows: int, n_edges: int, F: int, device: torch.device) -> tuple:
+    """K1 / K2's scratch: a float32 partial of F features and its row for the
+    head and the tail of every merge-path warp tile."""
+    tiles = lib.gnn_csr_reduce_tiles(n_rows, n_edges)
+    if tiles < 0:
+        raise ValueError(f"{n_rows} rows + {n_edges} edges exceed the kernels' int32 merge coordinates")
+    part = torch.empty(2 * tiles * F, dtype=torch.float32, device=device)
+    part_row = torch.empty(2 * tiles, dtype=torch.int32, device=device)
+    return part, part_row
+
+
 def raise_on_error(kernel: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error {rc}")

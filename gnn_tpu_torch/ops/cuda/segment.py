@@ -36,14 +36,16 @@ def segment_sum_csr(row_ptr: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"segment_sum_csr runs on CUDA or CPU tensors, got {msg.device}")
     suffix = _launch.check_features("msg", msg)
     _launch.check_index("row_ptr", row_ptr, msg.device)
-    n_rows, F = row_ptr.numel() - 1, msg.shape[1]
+    n_rows, (n_edges, F) = row_ptr.numel() - 1, msg.shape
     out = torch.empty((n_rows, F), dtype=msg.dtype, device=msg.device)
     if n_rows == 0 or F == 0:
         return out
-    fn = getattr(_build.load(), f"gnn_segment_sum_{suffix}")
+    lib = _build.load()
     with torch.cuda.device(msg.device):
-        rc = fn(
-            row_ptr.data_ptr(), msg.data_ptr(), out.data_ptr(), n_rows, F,
+        part, part_row = _launch.reduce_scratch(lib, n_rows, n_edges, F, msg.device)
+        rc = getattr(lib, f"gnn_segment_sum_{suffix}")(
+            row_ptr.data_ptr(), msg.data_ptr(), out.data_ptr(), part.data_ptr(),
+            part_row.data_ptr(), n_rows, n_edges, F,
             _launch.vector_path(msg, out), _launch.stream(msg.device),
         )
     _launch.raise_on_error("segment_sum_csr", rc)

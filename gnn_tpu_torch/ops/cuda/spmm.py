@@ -53,17 +53,18 @@ def csr_spmm(
     _launch.check_index("row_ptr", row_ptr, x.device)
     _launch.check_index("col", col, x.device)
     _launch.check_weight(weight, col.numel(), x.device)
-    n_rows, F = row_ptr.numel() - 1, x.shape[1]
+    n_rows, n_edges, F = row_ptr.numel() - 1, col.numel(), x.shape[1]
     out = torch.empty((n_rows, F), dtype=x.dtype, device=x.device)
     if n_rows == 0 or F == 0:
         return out
-    fn = getattr(_build.load(), f"gnn_csr_spmm_{suffix}")
+    lib = _build.load()
     with torch.cuda.device(x.device):
-        rc = fn(
+        part, part_row = _launch.reduce_scratch(lib, n_rows, n_edges, F, x.device)
+        rc = getattr(lib, f"gnn_csr_spmm_{suffix}")(
             row_ptr.data_ptr(), col.data_ptr(),
             None if weight is None else weight.data_ptr(),
-            x.data_ptr(), out.data_ptr(), n_rows, F,
-            _launch.vector_path(x, out), _launch.stream(x.device),
+            x.data_ptr(), out.data_ptr(), part.data_ptr(), part_row.data_ptr(),
+            n_rows, n_edges, F, _launch.vector_path(x, out), _launch.stream(x.device),
         )
     _launch.raise_on_error("csr_spmm", rc)
     csr_spmm.launches += 1

@@ -65,6 +65,93 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype, F, aligned):
     assert csr_spmm.launches - k1 == 4 and segment_sum_csr.launches - k2 == 1
 
 
+def _tolerance(dtype):
+    """As in chip_smoke.py. Float32: long rows sum thousands of terms in
+    another order than the plain version's index_add_. bfloat16: both sum the
+    same bf16 values in float32 and round once, so they are one bf16 rounding
+    apart (rtol=2e-2), plus the float32 order error of sums that cancel to
+    near zero (atol=1e-3)."""
+    return dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=1e-3)
+
+
+def _check_deterministic(kernel, plain, args, dtype):
+    """The kernel twice (bitwise equal: no atomics) against its plain version."""
+    got = kernel(*args)
+    assert torch.equal(got, kernel(*args))
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), plain(*args).float(), **_tolerance(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 2, 8, 40])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "misaligned"])
+def test_merge_path_kernels_at_narrow_widths_on_card(cuda_device, dtype, F, aligned):
+    """K1 (with weights, with w=None, and over col = t_perm as the source
+    gather's VJP) and K2 at GAT's widths and a few others, where lane groups
+    smaller than a warp take one edge each; two calls give equal bits, and
+    each wrapper call counts one launch."""
+    n = 3000
+    ei, _ = tg.to_undirected(tg.power_law(n, 40000, seed=2), num_nodes=n)
+    ei, w = tg.gcn_norm(ei, num_nodes=n)
+    adj = tg.build_adjacency(ei, w, num_nodes=n).to(cuda_device)
+    make = (lambda r, c: torch.randn(r, c, device=cuda_device).to(dtype)) if aligned else (
+        lambda r, c: _misaligned(r, c, dtype, cuda_device))
+    x, ge, msg = make(n, F), make(adj.num_edges, F), make(adj.num_edges, F)
+    k1, k2 = csr_spmm.launches, segment_sum_csr.launches
+    for args in ((adj.row_ptr, adj.src, adj.weight, x), (adj.row_ptr, adj.src, None, x),
+                 (adj.t_row_ptr, adj.t_perm, None, ge)):
+        _check_deterministic(csr_spmm, csr_spmm_plain, args, dtype)
+    _check_deterministic(segment_sum_csr, segment_sum_csr_plain, (adj.row_ptr, msg), dtype)
+    torch.cuda.synchronize()
+    assert (csr_spmm.launches - k1, segment_sum_csr.launches - k2) == (6, 2)
+
+
+# Degrees of the rows of hand-made CSRs. "star": an empty row, 20 rows of
+# 255 edges (each row's last edge closes a 256-item warp tile, so its row end
+# opens the next one), a 60,000-edge hub, 100 empty rows, 50 short rows.
+# "tile-ends": rows of 255 edges whose row ends each close a warp tile.
+# "no-edges": 500 empty rows.
+_SKEWED_DEGREES = {
+    "star": [0] + [255] * 20 + [60_000] + [0] * 100 + [3] * 50,
+    "tile-ends": [255] * 40,
+    "no-edges": [0] * 500,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", list(_SKEWED_DEGREES))
+def test_merge_path_kernels_on_skewed_rows_on_card(cuda_device, dtype, layout):
+    """Rows much longer than a tile, rows that end exactly on a tile
+    boundary, empty rows and a graph with no edges, through K1 and K2 at
+    widths 1, 8 and 64. Features and weights are positive, so the hub's
+    60,000-term sums do not cancel and the two summation orders agree to a
+    relative float32 error (as with chip_smoke.py's positive cotangents)."""
+    rng = np.random.default_rng(0)
+    deg = np.asarray(_SKEWED_DEGREES[layout])
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    ends = row_ptr[1:] + np.arange(deg.size)  # merge position of each row end
+    if layout == "star":
+        assert (ends[1:21] % 256 == 0).all() and deg.max() > 50_000
+    if layout == "tile-ends":
+        assert (ends % 256 == 255).all()
+    e, n_src = int(row_ptr[-1]), 1000
+    as_dev = lambda a: torch.from_numpy(a).to(cuda_device)
+    rp = as_dev(row_ptr.astype(np.int32))
+    col = as_dev(rng.integers(0, n_src, e).astype(np.int32))
+    w = as_dev(rng.random(e).astype(np.float32))
+    for F in (1, 8, 64):
+        x = as_dev(rng.random((n_src, F), dtype=np.float32)).to(dtype)
+        msg = as_dev(rng.random((e, F), dtype=np.float32)).to(dtype)
+        k1, k2 = csr_spmm.launches, segment_sum_csr.launches
+        _check_deterministic(csr_spmm, csr_spmm_plain, (rp, col, w, x), dtype)
+        _check_deterministic(csr_spmm, csr_spmm_plain, (rp, col, None, x), dtype)
+        _check_deterministic(segment_sum_csr, segment_sum_csr_plain, (rp, msg), dtype)
+        torch.cuda.synchronize()
+        assert (csr_spmm.launches - k1, segment_sum_csr.launches - k2) == (4, 2)
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_reject_bad_arguments(cuda_device):
     rp = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device)

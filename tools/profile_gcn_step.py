@@ -23,7 +23,8 @@ then traces ``--steps`` steps with ``torch.profiler``. It prints:
 - device ms, launches and share of busy time per kernel name;
 - with ``--reorder cluster``, the busy time split into the block product
   (the kernels inside ``blocked_matvec``'s ``blocked_matvec.diag`` range:
-  pad, bmm, cast), K1 (``csr_spmm_kernel``: the remainder) and the rest.
+  pad, bmm, cast), K1 (``csr_reduce_kernel`` and ``csr_reduce_fixup``: the
+  remainder; the cluster step launches no K2) and the rest.
 
 ``--trace`` also writes a Chrome trace to PATH. It needs a CUDA device.
 """
@@ -77,13 +78,13 @@ def split_blocked(prof_events, kernels, steps: int) -> dict:
     ]
     if not ranges:
         return {}
-    out = {"block product (pad, bmm, cast)": 0.0, "K1 csr_spmm_kernel (remainder)": 0.0, "rest": 0.0}
+    out = {"block product (pad, bmm, cast)": 0.0, "K1 csr_reduce_* (remainder)": 0.0, "rest": 0.0}
     for e in kernels:
         start, end = e.time_range.start, e.time_range.end
         if any(lo <= start and end <= hi for lo, hi in ranges):
             key = "block product (pad, bmm, cast)"
-        elif "csr_spmm_kernel" in e.name:
-            key = "K1 csr_spmm_kernel (remainder)"
+        elif "csr_reduce_" in e.name:
+            key = "K1 csr_reduce_* (remainder)"
         else:
             key = "rest"
         out[key] += (end - start) / 1e3 / steps
