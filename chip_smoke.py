@@ -12,15 +12,22 @@ and bfloat16, and times both with CUDA events: K1 and K2 at F in {40, 128,
 256} (the GCN widths), then the GAT shapes: K3 forward and transpose at (H,
 F) = (8, 32) and (1, 40), K2 at widths 8 and 1 (the softmax denominator), K1
 over ``col = t_perm`` at width 8 (the VJP of the source gather); each
-kernel call is also repeated and must give the same bits. Phase
+kernel call is also repeated and must give the same bits. Every row states
+its bound from ``gnn_tpu_torch.ops.cuda.bounds`` (``bound_ms``: each input
+and output byte once at 3.35 TB/s, or the operations at 67 TFLOP/s if that
+is more; ``noreuse_ms``: a gathered row once per edge) and, in float32 where
+one PyTorch call computes the same function, that call's time
+(``library_ms``: ``torch.sparse.mm`` on a CSR tensor for K1 and for K3, whose
+H heads become one [N H, N H] CSR of E H entries, ``torch.segment_reduce``
+for K2; held to the kernel's result, used nowhere in the port). Phase
 1-blocked builds the clustered arxiv-scale graph (``clustered_power_law``,
 the recipe of bench.py's blocked workload) with ``reorder='cluster'`` twice,
 at 256-row float32 and 512-row bfloat16 windows, and holds
 ``blocked_matvec`` (the block product plus K1 over the remainder CSR)
 forward and transpose at F in {256, 40} against its plain version, the
 float32 one also against K1 over the whole relabelled CSR, with times of all
-three; a line then sets K1's F=256 time on the two graphs beside their edge
-counts and longest rows. Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
+three; two lines then set K1's F=256 time and K3's (8, 32) time on the two
+graphs beside their edge counts and longest rows. Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
 classes) for 5 epochs on the power-law graph through
 ``gnn_tpu_torch.train.fit``;
 phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
@@ -33,7 +40,8 @@ trains the Kipf GCN (on the CSR and on the blocked layout) and the GAT
 recipes on ``cora_like`` into their accuracy bands, and runs the CLI.
 
 The next-to-last line of standard output is a JSON object with each
-kernel's launches, error and times; the last is
+kernel's launches (in all, and per training step of each path, the
+evaluation's launches left out), error, times, bound and library time; the last is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result. It needs a CUDA device; there is no CPU path.
 """
@@ -57,12 +65,12 @@ from gnn_tpu_torch.graphs.generate import clustered_power_law, cora_like, stocha
 from gnn_tpu_torch.models import GAT, GCN
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
-from gnn_tpu_torch.ops.cuda import _build
+from gnn_tpu_torch.ops.cuda import _build, bounds
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
 from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain
 from gnn_tpu_torch.train import Config, fit
-from gnn_tpu_torch.train import cli
+from gnn_tpu_torch.train import cli, loop
 
 N_NODES = 169_343  # ogbn-arxiv
 E_DIRECTED = 1_157_799
@@ -188,18 +196,65 @@ def check_repeat(label: str, kernel, args, got: torch.Tensor) -> None:
         raise AssertionError(f"{label}: a second call gave other bits")
 
 
-def record(results, name, what, tag, dtype, err, ms, plain_ms, **shape) -> None:
-    results[name]["rows"].append(dict(shape, dtype=str(dtype), what=what, err=err, ms=ms, plain_ms=plain_ms))
+def record(results, name, what, tag, dtype, err, ms, plain_ms, bound, library_ms=None, **shape) -> None:
+    """One phase-1 row: the kernel's and the plain version's times, the bound
+    of the call (a ``bounds.Bound``) and the library call's time or None."""
+    results[name]["rows"].append(dict(
+        shape, dtype=str(dtype), what=what, err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound.bound_ms, bound_by=bound.bound_by, noreuse_ms=bound.noreuse_ms, library_ms=library_ms,
+    ))
     if dtype == torch.float32:
         results[name]["errs"].append(err)
+    library = "none" if library_ms is None else f"{library_ms:.4f}"
     log(f"phase1 {name:16s} {what:15s} {tag:14s} max_abs_err={err:.3e} "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound.bound_ms:.4f} ({bound.bound_by}) "
+        f"noreuse_ms={bound.noreuse_ms:.4f} library_ms={library}")
 
 
-def phase1(adj, dev, results, k1_by_graph) -> None:
+def library_ms(label: str, call, got: torch.Tensor) -> float:
+    """Time of one PyTorch library call that computes what a kernel does,
+    after holding its result to the kernel's (float32 only)."""
+    compare(f"{label} library call", call(), got, torch.float32)
+    return time_ms(call)
+
+
+def sparse_csr(row_ptr, col, values, n_cols: int) -> torch.Tensor:
+    return torch.sparse_csr_tensor(row_ptr, col, values, size=(row_ptr.numel() - 1, n_cols))
+
+
+def heads_csr(row_ptr, col, w, n_cols: int) -> torch.Tensor:
+    """K3's operator as one CSR matrix [N_rows H, n_cols H] with E H entries:
+    row r H + h holds w[k, h] at column col[k] H + h for the edges k of row r
+    (w [E, H] in the CSR's edge order), so that its product with x viewed as
+    [n_cols H, F] is K3's output viewed as [N_rows H, F]."""
+    H = w.shape[1]
+    deg = row_ptr.diff()
+    rows = torch.repeat_interleave(deg)  # the row of each edge
+    start, count = row_ptr[:-1].long()[rows], deg.long()[rows]
+    k, h = torch.arange(col.numel(), device=col.device), torch.arange(H, device=col.device)
+    # entry (k, h) lies after the row's earlier heads, at the edge's place in the row
+    at = (start * H + k - start)[:, None] + h * count[:, None]
+    big_col = torch.empty(col.numel() * H, dtype=torch.int32, device=col.device)
+    big_col[at] = (col.long()[:, None] * H + h).int()
+    big_w = torch.empty_like(big_col, dtype=w.dtype)
+    big_w[at] = w
+    big_ptr = torch.zeros(deg.numel() * H + 1, dtype=torch.int32, device=col.device)
+    big_ptr[1:] = deg.repeat_interleave(H).cumsum(0)
+    return torch.sparse_csr_tensor(big_ptr, big_col, big_w, size=(deg.numel() * H, n_cols * H))
+
+
+def heads_product(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The one library call behind K3's ``library_ms``, on x [N, H, F]."""
+    return torch.sparse.mm(a, x.view(-1, x.shape[2])).view(-1, *x.shape[1:])
+
+
+def phase1(adj, dev, results, by_graph) -> None:
     """K1 and K2 against their plain versions at the GCN's shapes, and
     against a second call of themselves."""
     gen = torch.Generator(device=dev).manual_seed(0)
+    n, e = adj.num_dst_nodes, adj.num_edges
+    a_fwd = sparse_csr(adj.row_ptr, adj.src, adj.weight, n)
+    a_t = sparse_csr(adj.t_row_ptr, adj.t_col, adj.t_weight, n)
     for F in WIDTHS:
         x32 = torch.randn(N_NODES, F, generator=gen, device=dev)
         g32 = torch.randn(N_NODES, F, generator=gen, device=dev)
@@ -235,14 +290,25 @@ def phase1(adj, dev, results, k1_by_graph) -> None:
                 "seg": (time_ms(lambda: segment_sum_csr(adj.row_ptr, msg)),
                         time_ms(lambda: segment_sum_csr_plain(adj.row_ptr, msg))),
             }
-            for name, what, err, key in (
-                ("csr_spmm", "fwd A@x", e_fwd, "fwd"),
-                ("csr_spmm", "bwd dx=A^T g", e_bwd, "dx"),
-                ("segment_sum_csr", "[E,F] -> [N,F]", e_seg, "seg"),
+            lib = dict.fromkeys(t)
+            if dtype == torch.float32:
+                lib = {
+                    "fwd": library_ms(f"csr_spmm fwd {tag}", lambda: torch.sparse.mm(a_fwd, x), fwd),
+                    "dx": library_ms(f"csr_spmm dx {tag}", lambda: torch.sparse.mm(a_t, g), xr.grad),
+                    "seg": library_ms(
+                        f"segment_sum_csr {tag}",
+                        lambda: torch.segment_reduce(msg, "sum", offsets=adj.row_ptr, axis=0, unsafe=True), seg),
+                }
+            k1_bound = bounds.csr_spmm_bound(n, n, e, F, x.element_size())
+            for name, what, err, key, bound in (
+                ("csr_spmm", "fwd A@x", e_fwd, "fwd", k1_bound),
+                ("csr_spmm", "bwd dx=A^T g", e_bwd, "dx", k1_bound),
+                ("segment_sum_csr", "[E,F] -> [N,F]", e_seg, "seg",
+                 bounds.segment_sum_bound(n, e, F, x.element_size())),
             ):
-                record(results, name, what, tag, dtype, err, *t[key], F=F)
+                record(results, name, what, tag, dtype, err, *t[key], bound, lib[key], F=F)
             if F == 256 and dtype == torch.float32:
-                k1_by_graph["power-law"] = graph_stats(adj, t["fwd"][0])
+                by_graph["K1"]["power-law"] = graph_stats(adj, t["fwd"][0])
 
             if dtype == torch.float32:
                 w = adj.weight.clone().requires_grad_()
@@ -257,16 +323,26 @@ def phase1(adj, dev, results, k1_by_graph) -> None:
         torch.cuda.empty_cache()
 
 
-def graph_stats(adj, k1_ms: float) -> dict:
-    return dict(edges=adj.num_edges, max_in_degree=int(adj.row_ptr.diff().max()), k1_ms=k1_ms)
+def graph_stats(adj, ms: float) -> dict:
+    return dict(edges=adj.num_edges, max_in_degree=int(adj.row_ptr.diff().max()), ms=ms)
 
 
-def phase1_blocked(edges: np.ndarray, dev, results, k1_by_graph) -> None:
+def log_by_graph(label: str, stats: dict) -> None:
+    """A kernel's time should follow the edge count, not the longest row."""
+    pl, cl = stats["power-law"], stats["clustered"]
+    log(f"phase1 {label} float32 by graph: power-law {json.dumps(pl)}, clustered {json.dumps(cl)}; "
+        f"time ratio {pl['ms'] / cl['ms']:.3f}, edge ratio {pl['edges'] / cl['edges']:.3f}, "
+        f"max in-degree ratio {pl['max_in_degree'] / cl['max_in_degree']:.3f}")
+
+
+def phase1_blocked(edges: np.ndarray, dev, results, by_graph) -> None:
     """blocked_matvec (the block product, then K1 over the remainder CSR)
     against its plain version, forward and transpose, at the GCN's widths;
     the float32 configuration also against K1 over the whole relabelled CSR
     of the same graph. Times: blocked, its plain version, the block product
-    alone, K1 over the remainder alone, and K1 over the whole CSR."""
+    alone, K1 over the remainder alone (beside its bound), and K1 over the
+    whole CSR; K3's (8, 32) forward over that CSR is held against its plain
+    version and timed for the by-graph line."""
     ei, w = gcn_norm(edges, num_nodes=N_NODES, self_loops=True)
     gen = torch.Generator(device=dev).manual_seed(2)
     for rows, block_dtype in BLOCKED_CONFIGS:
@@ -300,8 +376,11 @@ def phase1_blocked(edges: np.ndarray, dev, results, k1_by_graph) -> None:
                 xw = xw.view(-1, rows, F).to(lay.diag.dtype)
                 diag_ms = time_ms(lambda: _diag_product(lay.diag, xw))
                 rem_ms = time_ms(lambda: csr_spmm(lay.rem_row_ptr, lay.rem_src, lay.rem_w, v))
+                rem_bound = bounds.csr_spmm_bound(N_NODES, N_NODES, lay.num_rem_edges, F, v.element_size())
                 line = (f"phase1-blocked {tag:28s} max_abs_err={err:.3e} blocked_ms={ms:.4f} "
-                        f"plain_ms={plain_ms:.4f} bmm_ms={diag_ms:.4f} k1_remainder_ms={rem_ms:.4f}")
+                        f"plain_ms={plain_ms:.4f} bmm_ms={diag_ms:.4f} k1_remainder_ms={rem_ms:.4f} "
+                        f"k1_remainder_bound_ms={rem_bound.bound_ms:.4f} "
+                        f"k1_remainder_noreuse_ms={rem_bound.noreuse_ms:.4f}")
                 if block_dtype is None:
                     full = csr_spmm(*csr, v)
                     err_csr = compare(f"blocked_matvec vs full-CSR K1 {tag}", got, full, torch.float32)
@@ -309,7 +388,8 @@ def phase1_blocked(edges: np.ndarray, dev, results, k1_by_graph) -> None:
                     csr_ms = time_ms(lambda: csr_spmm(*csr, v))
                     line += f" k1_full_csr_ms={csr_ms:.4f} err_vs_full_csr={err_csr:.3e}"
                     if F == 256 and lay is adj.blocked:
-                        k1_by_graph["clustered"] = graph_stats(adj, csr_ms)
+                        by_graph["K1"]["clustered"] = graph_stats(adj, csr_ms)
+                        by_graph["K3"]["clustered"] = graph_stats(adj, k3_forward_ms(adj, v, gen))
                 log(line)
                 results["csr_spmm"]["rows"].append(dict(
                     F=F, dtype="torch.float32", what=f"blocked {what} {cfg}", err=err, ms=ms, plain_ms=plain_ms,
@@ -318,6 +398,18 @@ def phase1_blocked(edges: np.ndarray, dev, results, k1_by_graph) -> None:
             del x, g
         del adj
         torch.cuda.empty_cache()
+
+
+def k3_forward_ms(adj, x2: torch.Tensor, gen) -> float:
+    """K3's forward at GAT's hidden shape over ``adj``'s CSR, x2 [N, H * F]
+    float32: checked against the plain version and a second call, then timed."""
+    H, F = GAT_HEADS[0]
+    _, alpha = attention_weights(adj, H, gen)
+    args = (adj.row_ptr, adj.src, alpha, x2.view(-1, H, F))
+    got = csr_spmm_heads(*args)
+    compare("csr_spmm_heads fwd, clustered graph", got, csr_spmm_heads_plain(*args), torch.float32)
+    check_repeat("csr_spmm_heads fwd, clustered graph", csr_spmm_heads, args, got)
+    return time_ms(lambda: csr_spmm_heads(*args))
 
 
 def attention_weights(adj, H: int, gen) -> tuple:
@@ -331,13 +423,15 @@ def attention_weights(adj, H: int, gen) -> tuple:
     return ex, ex / den.index_select(0, adj.dst.long())
 
 
-def phase1_gat(adj, dev, results) -> None:
-    """K3, K2 and K1 against their plain versions at the GAT's shapes."""
+def phase1_gat(adj, dev, results, by_graph) -> None:
+    """K3, K2 and K1 against their plain versions at the GAT's shapes. K3's
+    transpose reads its weights in place through ``w_index = t_perm``, as
+    the training path's backward does."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    n = adj.num_dst_nodes
+    n, e = adj.num_dst_nodes, adj.num_edges
+    ones = torch.ones(e, device=dev)
     for H, F in GAT_HEADS:
         ex, alpha = attention_weights(adj, H, gen)
-        t_alpha = alpha.index_select(0, adj.t_perm.long())
         x32 = torch.randn(n, H, F, generator=gen, device=dev)
         # Positive cotangents for the transpose: a hub source sums 21,305
         # terms, and without cancellation the two summation orders agree to
@@ -345,28 +439,43 @@ def phase1_gat(adj, dev, results) -> None:
         g32 = torch.rand(n, H, F, generator=gen, device=dev)
         # the cotangent of the gathered a_src . h, here GCN-weighted noise so
         # that a hub's sum stays O(1)
-        ge32 = torch.randn(adj.num_edges, H, generator=gen, device=dev) * adj.weight[:, None]
+        ge32 = torch.randn(e, H, generator=gen, device=dev) * adj.weight[:, None]
+        # K3 as one library call: a CSR product over the heads' expanded CSR
+        a_fwd = heads_csr(adj.row_ptr, adj.src, alpha, n)
+        a_t = heads_csr(adj.t_row_ptr, adj.t_col, alpha.index_select(0, adj.t_perm.long()), n)
+        a_perm = sparse_csr(adj.t_row_ptr, adj.t_perm, ones, e)
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"H={H} F={F} {str(dtype).removeprefix('torch.')}"
-            x, g, ge = x32.to(dtype), g32.to(dtype), ge32.to(dtype)
+            x, g, ge, exd = x32.to(dtype), g32.to(dtype), ge32.to(dtype), ex.to(dtype)
+            size = x.element_size()
             cases = (
                 ("csr_spmm_heads", "fwd num", csr_spmm_heads, csr_spmm_heads_plain,
-                 (adj.row_ptr, adj.src, alpha, x)),
+                 (adj.row_ptr, adj.src, alpha, x), bounds.csr_spmm_heads_bound(n, n, e, H, F, size),
+                 lambda: heads_product(a_fwd, x)),
                 ("csr_spmm_heads", "bwd dh", csr_spmm_heads, csr_spmm_heads_plain,
-                 (adj.t_row_ptr, adj.t_col, t_alpha, g)),
+                 (adj.t_row_ptr, adj.t_col, alpha, g, adj.t_perm),
+                 bounds.csr_spmm_heads_bound(n, n, e, H, F, size, indexed=True),
+                 lambda: heads_product(a_t, g)),
                 ("segment_sum_csr", f"den [E,{H}]", segment_sum_csr, segment_sum_csr_plain,
-                 (adj.row_ptr, ex.to(dtype))),
+                 (adj.row_ptr, exd), bounds.segment_sum_bound(n, e, H, size),
+                 lambda: torch.segment_reduce(exd, "sum", offsets=adj.row_ptr, axis=0, unsafe=True)),
                 ("csr_spmm", "gather_src VJP", csr_spmm, csr_spmm_plain,
-                 (adj.t_row_ptr, adj.t_perm, None, ge)),
+                 (adj.t_row_ptr, adj.t_perm, None, ge), bounds.csr_spmm_bound(n, e, e, H, size, weighted=False),
+                 lambda: torch.sparse.mm(a_perm, ge)),
             )
-            for name, what, kernel, plain, args in cases:
+            for name, what, kernel, plain, args, bound, library in cases:
                 got = kernel(*args)
                 err = compare(f"{name} {what} {tag}", got, plain(*args), dtype)
                 check_repeat(f"{name} {what} {tag}", kernel, args, got)
-                record(results, name, what, tag, dtype, err,
-                       time_ms(lambda: kernel(*args)), time_ms(lambda: plain(*args)), H=H, F=F)
+                lib = None
+                if dtype == torch.float32:
+                    lib = library_ms(f"{name} {what} {tag}", library, got)
+                ms = time_ms(lambda: kernel(*args))
+                record(results, name, what, tag, dtype, err, ms, time_ms(lambda: plain(*args)), bound, lib, H=H, F=F)
+                if (name, what, H, dtype) == ("csr_spmm_heads", "fwd num", GAT_HEADS[0][0], torch.float32):
+                    by_graph["K3"]["power-law"] = graph_stats(adj, ms)
             log(f"phase1 bitwise repeat {tag}: K3 fwd, K3 dh, K2, K1 equal")
-        del ex, alpha, t_alpha, x32, g32, ge32
+        del ex, alpha, x32, g32, ge32, a_fwd, a_t, a_perm
         torch.cuda.empty_cache()
 
 
@@ -409,28 +518,50 @@ def arxiv_gat_config(epochs: int = 5) -> Config:
     return cfg
 
 
-def train_phase(label: str, cfg: Config, data: Data, dev, want: dict) -> dict:
+def read_counters() -> dict:
+    return {name: counter.launches for name, counter in COUNTERS.items()}
+
+
+def train_phase(label: str, cfg: Config, data: Data, dev, want: dict) -> tuple:
     """Train through ``fit`` with every launch counter at 0 just before and
-    read just after; check finite losses and the launches per kernel."""
+    read just after; check finite losses and the launches per kernel.
+    Returns the launches in all and those of one training step: the counters
+    are also read around each of ``fit``'s evaluations, whose launches are
+    taken off before dividing by the epochs."""
+    in_eval = dict.fromkeys(COUNTERS, 0)
+    evaluate = loop.evaluate
+
+    def counted_evaluate(*args):
+        before = read_counters()
+        out = evaluate(*args)
+        for name, count in read_counters().items():
+            in_eval[name] += count - before[name]
+        return out
+
     for counter in COUNTERS.values():
         counter.launches = 0
-    _, _, history = fit(cfg, data, device=dev, verbose=False)
-    launches = {name: counter.launches for name, counter in COUNTERS.items()}
+    loop.evaluate = counted_evaluate
+    try:
+        _, _, history = fit(cfg, data, device=dev, verbose=False)
+    finally:
+        loop.evaluate = evaluate
+    launches = read_counters()
+    per_step = {name: (launches[name] - in_eval[name]) / cfg.train.epochs for name in COUNTERS}
 
     losses = [h["loss"] for h in history]
     step_ms = [h["step_ms"] for h in history]
     log(f"{label} losses per epoch: {losses}")
     log(f"{label} step ms per epoch (synced): {step_ms}")
     log(f"{label} median ms/epoch over epochs 2-5: {float(np.median(step_ms[1:])):.3f}")
-    log(f"{label} launches: {launches} (expected {want})")
+    log(f"{label} launches: {launches} (expected {want}); per training step: {per_step}")
     if len(losses) != cfg.train.epochs or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: expected {cfg.train.epochs} finite losses, got {losses}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
-    return launches
+    return launches, per_step
 
 
-def phase2(data: Data, dev) -> dict:
+def phase2(data: Data, dev) -> tuple:
     """The GCN main path: full-graph training at arxiv scale. Each epoch
     runs K1 once a layer forward, once a layer backward (dx of the layer's
     Linear output) and once a layer in the evaluation."""
@@ -440,7 +571,7 @@ def phase2(data: Data, dev) -> dict:
     return train_phase("phase2", cfg, data, dev, want)
 
 
-def phase2_gat(data: Data, dev) -> dict:
+def phase2_gat(data: Data, dev) -> tuple:
     """The GAT main path: full-graph training at arxiv scale. A layer runs
     K3 (numerator) and K2 (denominator) forward; backward K3 (dh), K1 (the
     source gather's VJP) and K2 (the destination gather's VJP); the
@@ -545,26 +676,24 @@ def main() -> int:
         f"prep {time.perf_counter() - t0:.1f} s")
 
     checks = {name: {"errs": [], "rows": []} for name in KERNELS}
-    k1_by_graph = {}
-    phase1(adj, dev, checks, k1_by_graph)
-    phase1_gat(adj, dev, checks)
+    by_graph = {"K1": {}, "K3": {}}
+    phase1(adj, dev, checks, by_graph)
+    phase1_gat(adj, dev, checks, by_graph)
     del adj
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     clustered = clustered_edges()
     log(f"clustered graph: {N_NODES} nodes, {clustered.shape[1]} undirected edges, "
         f"generated in {time.perf_counter() - t0:.1f} s")
-    phase1_blocked(clustered, dev, checks, k1_by_graph)
-    # K1's time should follow the edge count, not the longest row.
-    pl, cl = k1_by_graph["power-law"], k1_by_graph["clustered"]
-    log(f"phase1 K1 F=256 fwd float32 by graph: power-law {json.dumps(pl)}, clustered {json.dumps(cl)}; "
-        f"time ratio {pl['k1_ms'] / cl['k1_ms']:.3f}, edge ratio {pl['edges'] / cl['edges']:.3f}, "
-        f"max in-degree ratio {pl['max_in_degree'] / cl['max_in_degree']:.3f}")
+    phase1_blocked(clustered, dev, checks, by_graph)
+    log_by_graph("K1 F=256 fwd", by_graph["K1"])
+    log_by_graph(f"K3 (H,F)={GAT_HEADS[0]} fwd", by_graph["K3"])
     data = arxiv_scale_data(edges)
-    by_path = {"gcn": phase2(data, dev), "gat": phase2_gat(data, dev)}
+    runs = {"gcn": phase2(data, dev), "gat": phase2_gat(data, dev)}
     del data
     cluster_runs = phase2_cluster(arxiv_scale_data(clustered), dev)
-    by_path.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})
+    runs.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})
+    by_path = {path: launches for path, (launches, _) in runs.items()}
     phase3(dev)
 
     # The row each kernel's times come from: its widest main-path shape.
@@ -583,7 +712,9 @@ def main() -> int:
         entries.append(dict(
             name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
             launches=launches, max_abs_err=max(checks[name]["errs"]),
-            ms=row["ms"], plain_ms=row["plain_ms"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
+            launches_per_step={path: per_step[name] for path, (_, per_step) in runs.items()},
         ))
     log(f"launches by path: {json.dumps(by_path)}")
     log(nvidia_smi())

@@ -1,8 +1,9 @@
 // Shared helpers for the CSR kernels: vector loads and stores that widen
 // to float32 for accumulation, and the launch geometry: 8 warps a block for
-// all three; one warp per row for K3 (gat_spmm.cu), merge-path tiles of
-// row ends and edges for K1 and K2 (csr_reduce.cuh). None of them uses
-// tensor cores: they move 4-8 bytes for every 1-2 flops.
+// all three (K1 csr_spmm.cu, K2 segment_sum.cu, K3 gat_spmm.cu), which are
+// instances of one reduction over merge-path tiles of row ends and edges
+// (csr_reduce.cuh). None of them uses tensor cores: they move 4-8 bytes for
+// every 1-2 flops.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,10 +14,6 @@ namespace gnn {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
-// Edges whose feature loads K3's warp keeps in flight at once. A power-law
-// hub row is one warp's serial walk there; without this it pays one full
-// load latency per edge.
-constexpr int kUnroll = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
@@ -56,10 +53,6 @@ __device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
   acc.y = fmaf(w, v.y, acc.y);
   acc.z = fmaf(w, v.z, acc.z);
   acc.w = fmaf(w, v.w, acc.w);
-}
-
-inline unsigned blocks_for_rows(int n_rows) {
-  return static_cast<unsigned>((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
 }
 
 }  // namespace gnn

@@ -1,7 +1,13 @@
-// The CSR row reduction that K1 (csr_spmm.cu) and K2 (segment_sum.cu) share:
-//   out[r, :] = sum_{k in [row_ptr[r], row_ptr[r + 1])} w[k] * x[idx(k), :]
-// with idx(k) = col[k] for K1 ("gather") and idx(k) = k for K2
-// ("contiguous", w all ones). float32 sums, output in x's dtype, empty rows 0.
+// The CSR row reduction that K1 (csr_spmm.cu), K2 (segment_sum.cu) and K3
+// (gat_spmm.cu) share:
+//   out[r, f] = sum_{k in [row_ptr[r], row_ptr[r + 1])} wgt(k, f) * x[idx(k), f]
+// over rows of F features. The Op parameter names the instance:
+//   Gather      (K1): idx(k) = col[k], wgt(k, f) = w[k] (1 where w is null);
+//   Contiguous  (K2): idx(k) = k,      wgt(k, f) = 1;
+//   GatherHeads (K3): idx(k) = col[k], the row is H heads of F / H features and
+//                     wgt(k, f) = w[widx(k) * H + f / (F / H)], with
+//                     widx(k) = w_index[k], or k where w_index is null.
+// float32 sums, output in x's dtype, empty rows 0.
 //
 // Work is cut by edges, not by rows: merge-path tiles (Merrill & Garland,
 // "Merge-based parallel sparse matrix-vector multiplication", SC'16). The
@@ -13,9 +19,14 @@
 // finds its two merge coordinates with a 32-way warp search of row_ptr itself
 // (about 4 rounds of loads at ogbn-arxiv scale): no host plan and no cache per
 // adjacency, so any CSR (row_ptr, t_row_ptr, a blocked remainder) runs as is.
-// It then stages its row_ptr slice and, for K1, its col and w slices into
-// shared memory with cp.async (read once, coalesced, no register staging),
-// and each warp finds its own coordinates in that slice.
+// It then stages its row_ptr slice and, for K1, its col and w slices (for K3
+// col and w_index) into shared memory with cp.async (read once, coalesced, no
+// register staging), and each warp finds its own coordinates in that slice.
+// K3's weights stay in global memory: a lane reads its own head's weight
+// beside the feature load, the H weights of an edge are 4 H contiguous bytes
+// (one 32-byte sector at H = 8) that the lanes of a warp share, and a CTA's
+// 2,048 x H weights in shared memory (64 KB at H = 8) would leave an SM two
+// CTAs where the index slices alone leave it eight.
 //
 // A warp walks the rows of its items in order. A row that lies wholly inside
 // the warp's items is written to out once. A row cut by a warp boundary
@@ -31,8 +42,9 @@
 // edges, at width 8 (two lanes of float4) 16 edges; at F >= 128 one edge a
 // warp step, 128 features a pass. kU steps are issued before the first add,
 // unconditionally (slots past the row's end reread its last edge and are not
-// added, as in gat_spmm.cu), and the groups' partials are combined with a
-// __shfl_xor_sync butterfly in a fixed order.
+// added), and the groups' partials are combined with a __shfl_xor_sync
+// butterfly in a fixed order. On K3's vector path F / H is a multiple of 4,
+// so a lane's four features lie in one head.
 //
 // Feature rows are not staged through shared memory: each is read once by
 // one lane group with 16-byte loads (coalesced along the row, and for K2
@@ -50,6 +62,20 @@ namespace gnn {
 
 constexpr int kWarpItems = 256;  // merge items (row ends + edges) per warp
 constexpr int kTileItems = kWarpItems * kWarpsPerBlock;
+
+// The instances of the reduction; a profile shows them in the kernels' names.
+struct Contiguous {
+  static constexpr bool kGather = false;
+  static constexpr bool kHeads = false;
+};
+struct Gather {
+  static constexpr bool kGather = true;
+  static constexpr bool kHeads = false;
+};
+struct GatherHeads {
+  static constexpr bool kGather = true;
+  static constexpr bool kHeads = true;
+};
 
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -104,12 +130,18 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 }
 
 // Sum of edges [b, e) of one row into `dst` (out's dtype) or, for a cut row,
-// `pdst` (float32 scratch). col_s / w_s hold the CTA's edges from jbase on.
-template <typename T, bool kVec, int kG, bool kGather>
+// `pdst` (float32 scratch). col_s / w_s / wi_s hold the CTA's edges from jbase
+// on: w_s K1's weights (null: ones), wi_s K3's weight rows (null: the edge's
+// own); K3 reads its weights from w [E, H] in global memory, head0 being the
+// head of the lane's features in the first pass. A group narrower than a warp
+// covers the row in one pass (lanes_per_edge), so only kG = 32 loops over f0.
+template <typename T, bool kVec, int kG, typename Op>
 __device__ __forceinline__ void reduce_row(int b, int e, const int32_t* col_s,
-                                           const float* w_s, int jbase, bool has_w,
-                                           const T* __restrict__ x, int F, int lane,
-                                           T* dst, float* pdst) {
+                                           const float* w_s, const int32_t* wi_s,
+                                           int jbase, const float* __restrict__ w,
+                                           const T* __restrict__ x, int F, int H,
+                                           int head_width, int head0, int lane, T* dst,
+                                           float* pdst) {
   constexpr int kPer = kVec ? 4 : 1;
   constexpr int kGroups = kWarp / kG;
   // warp steps in flight: 8 edges a warp at kG = 32, at least two steps
@@ -120,6 +152,7 @@ __device__ __forceinline__ void reduce_row(int b, int e, const int32_t* col_s,
     const int f = f0 + f_lane;
     const bool active = f < F;
     const int fl = active ? f : 0;  // idle lanes read a valid address
+    const int head = !Op::kHeads ? 0 : f0 == 0 ? head0 : fl / head_width;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int base = b; base < e; base += kGroups * kU) {
       float4 v[kU];
@@ -127,8 +160,13 @@ __device__ __forceinline__ void reduce_row(int b, int e, const int32_t* col_s,
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const int k = min(base + u * kGroups + q, e - 1);
-        const int row = kGather ? col_s[k - jbase] : k;
-        wv[u] = has_w ? w_s[k - jbase] : 1.f;
+        const int row = Op::kGather ? col_s[k - jbase] : k;
+        if (Op::kHeads) {
+          const int wk = wi_s ? wi_s[k - jbase] : k;
+          wv[u] = __ldg(w + static_cast<int64_t>(wk) * H + head);
+        } else {
+          wv[u] = w_s ? w_s[k - jbase] : 1.f;
+        }
         v[u] = load_feat<kVec>(x + static_cast<int64_t>(row) * F + fl);
       }
 #pragma unroll
@@ -152,20 +190,22 @@ __device__ __forceinline__ void reduce_row(int b, int e, const int32_t* col_s,
         store_feat<kVec>(dst + f, acc);
       }
     }
+    if (kG < kWarp) break;
   }
 }
 
 // One CTA per kTileItems merge items, one warp per kWarpItems of them.
 // part holds two float32 [F] partials per warp (head, tail) and part_row
-// their rows (-1: none).
-template <typename T, bool kVec, int kG, bool kGather>
+// their rows (-1: none). H and w_index serve GatherHeads only.
+template <typename T, bool kVec, int kG, typename Op>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 csr_reduce_kernel(const int32_t* __restrict__ row_ptr,
                   const int32_t* __restrict__ col,
-                  const float* __restrict__ w,  // may be null: all ones
+                  const float* __restrict__ w,  // Gather: [E] or null (all ones); GatherHeads: [E, H]
+                  const int32_t* __restrict__ w_index,  // may be null: edge k has weight row k
                   const T* __restrict__ x, T* __restrict__ out,
                   float* __restrict__ part, int32_t* __restrict__ part_row,
-                  int n_rows, int n_edges, int F) {
+                  int n_rows, int n_edges, int F, int H) {
   extern __shared__ int32_t smem[];
   __shared__ int cta_row[2];
   const int warp = threadIdx.x / kWarp;
@@ -183,14 +223,19 @@ csr_reduce_kernel(const int32_t* __restrict__ row_ptr,
   const int j0c = d0 - i0c, j1c = d1 - i1c;
   int32_t* rp_s = smem;  // row_ptr[i0c .. i1c]
   int32_t* col_s = smem + kTileItems + 1;
-  float* w_s = reinterpret_cast<float*>(col_s + kTileItems);
+  // the third slice: K1's weights, or K3's weight rows
+  int32_t* wi_s = col_s + kTileItems;
+  float* w_s = reinterpret_cast<float*>(wi_s);
+  const bool stage_w = Op::kGather && !Op::kHeads && w;
+  const bool stage_wi = Op::kHeads && w_index;
   for (int t = threadIdx.x; t <= i1c - i0c; t += blockDim.x) {
     cp_async4(rp_s + t, row_ptr + i0c + t);
   }
-  if (kGather) {
+  if (Op::kGather) {
     for (int t = threadIdx.x; t < j1c - j0c; t += blockDim.x) {
       cp_async4(col_s + t, col + j0c + t);
-      if (w) cp_async4(w_s + t, w + j0c + t);
+      if (stage_w) cp_async4(w_s + t, w + j0c + t);
+      if (stage_wi) cp_async4(wi_s + t, w_index + j0c + t);
     }
   }
   cp_async_wait_all();
@@ -202,6 +247,9 @@ csr_reduce_kernel(const int32_t* __restrict__ row_ptr,
   const int i1 = merge_path_row(rp_s, i0c, max(i0c, dw1 - n_edges), min(i1c, dw1), dw1, lane);
   const int j0 = dw0 - i0, j1 = dw1 - i1;
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
+  const int head_width = Op::kHeads ? F / H : F;
+  const int f_lane = (lane % kG) * (kVec ? 4 : 1);
+  const int head0 = Op::kHeads && f_lane < F ? f_lane / head_width : 0;
   int head = -1, tail = -1;
   if (dw0 < dw1) {
     for (int r = i0; r <= i1 && r < n_rows; ++r) {
@@ -215,8 +263,9 @@ csr_reduce_kernel(const int32_t* __restrict__ row_ptr,
         head = r;
         pdst = part + 2 * tile * F;
       }
-      reduce_row<T, kVec, kG, kGather>(max(rb, j0), e, col_s, w_s, j0c, kGather && w,
-                                       x, F, lane, out + static_cast<int64_t>(r) * F, pdst);
+      reduce_row<T, kVec, kG, Op>(max(rb, j0), e, col_s, stage_w ? w_s : nullptr,
+                                  stage_wi ? wi_s : nullptr, j0c, w, x, F, H, head_width,
+                                  head0, lane, out + static_cast<int64_t>(r) * F, pdst);
     }
   }
   if (lane == 0) {
@@ -227,8 +276,8 @@ csr_reduce_kernel(const int32_t* __restrict__ row_ptr,
 
 // One warp per warp tile of csr_reduce_kernel: a tile with a head row r sums
 // the tails of r in the tiles just before it, in tile order, then its head,
-// and writes out[r].
-template <typename T, bool kVec>
+// and writes out[r]. Op only names the instance.
+template <typename T, bool kVec, typename Op>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
 csr_reduce_fixup(const float* __restrict__ part, const int32_t* __restrict__ part_row,
                  T* __restrict__ out, int n_tiles, int F) {
@@ -274,64 +323,77 @@ inline int lanes_per_edge(int F, bool vec) {
   return g;
 }
 
-template <typename T, bool kVec, int kG, bool kGather>
-int launch_csr_reduce_g(const int32_t* row_ptr, const int32_t* col, const float* w,
-                        const T* x, T* out, float* part, int32_t* part_row,
-                        int n_rows, int n_edges, int F, cudaStream_t s) {
-  const int n_tiles = csr_reduce_tiles(n_rows, n_edges);
+// The arguments of one reduction, as the C entries receive them.
+template <typename T>
+struct ReduceArgs {
+  const int32_t* row_ptr;
+  const int32_t* col;
+  const float* w;
+  const int32_t* w_index;
+  const T* x;
+  T* out;
+  float* part;
+  int32_t* part_row;
+  int n_rows, n_edges, F, H;
+  cudaStream_t stream;
+};
+
+template <typename T, bool kVec, int kG, typename Op>
+int launch_csr_reduce_g(const ReduceArgs<T>& a) {
+  const int n_tiles = csr_reduce_tiles(a.n_rows, a.n_edges);
   if (n_tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_tiles / kWarpsPerBlock);
   const dim3 block(kWarp * kWarpsPerBlock);
-  const size_t smem = sizeof(int32_t) * (kTileItems + 1 + (kGather ? 2 * kTileItems : 0));
-  csr_reduce_kernel<T, kVec, kG, kGather><<<grid, block, smem, s>>>(
-      row_ptr, col, w, x, out, part, part_row, n_rows, n_edges, F);
+  const size_t smem = sizeof(int32_t) * (kTileItems + 1 + (Op::kGather ? 2 * kTileItems : 0));
+  csr_reduce_kernel<T, kVec, kG, Op><<<grid, block, smem, a.stream>>>(
+      a.row_ptr, a.col, a.w, a.w_index, a.x, a.out, a.part, a.part_row, a.n_rows, a.n_edges,
+      a.F, a.H);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  csr_reduce_fixup<T, kVec><<<grid, block, 0, s>>>(part, part_row, out, n_tiles, F);
+  csr_reduce_fixup<T, kVec, Op><<<grid, block, 0, a.stream>>>(a.part, a.part_row, a.out,
+                                                              n_tiles, a.F);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kVec, bool kGather>
-int launch_csr_reduce_v(const int32_t* row_ptr, const int32_t* col, const float* w,
-                        const T* x, T* out, float* part, int32_t* part_row,
-                        int n_rows, int n_edges, int F, cudaStream_t s) {
-#define GNN_REDUCE_G(G)                                                         \
-  case G:                                                                       \
-    return launch_csr_reduce_g<T, kVec, G, kGather>(row_ptr, col, w, x, out,    \
-                                                    part, part_row, n_rows,     \
-                                                    n_edges, F, s);
-  switch (lanes_per_edge(F, kVec)) {
-    GNN_REDUCE_G(1)
-    GNN_REDUCE_G(2)
-    GNN_REDUCE_G(4)
-    GNN_REDUCE_G(8)
-    GNN_REDUCE_G(16)
+template <typename T, bool kVec, typename Op>
+int launch_csr_reduce_v(const ReduceArgs<T>& a) {
+  switch (lanes_per_edge(a.F, kVec)) {
+    case 1:
+      return launch_csr_reduce_g<T, kVec, 1, Op>(a);
+    case 2:
+      return launch_csr_reduce_g<T, kVec, 2, Op>(a);
+    case 4:
+      return launch_csr_reduce_g<T, kVec, 4, Op>(a);
+    case 8:
+      return launch_csr_reduce_g<T, kVec, 8, Op>(a);
+    case 16:
+      return launch_csr_reduce_g<T, kVec, 16, Op>(a);
     default:
-      return launch_csr_reduce_g<T, kVec, 32, kGather>(row_ptr, col, w, x, out, part,
-                                                       part_row, n_rows, n_edges, F, s);
+      return launch_csr_reduce_g<T, kVec, 32, Op>(a);
   }
-#undef GNN_REDUCE_G
 }
 
 // Enqueues the reduction and its fixup on `stream`; returns cudaGetLastError().
-// part: float32 [2 * tiles * F], part_row: int32 [2 * tiles], with tiles =
-// csr_reduce_tiles(n_rows, n_edges). row_ptr[n_rows] must equal n_edges.
-template <typename T, bool kGather>
-int launch_csr_reduce(const void* row_ptr, const void* col, const void* w, const void* x,
-                      void* out, void* part, void* part_row, int n_rows, int n_edges,
-                      int F, int vec, void* stream) {
-  auto rp = static_cast<const int32_t*>(row_ptr);
-  auto c = static_cast<const int32_t*>(col);
-  auto wp = static_cast<const float*>(w);
-  auto xp = static_cast<const T*>(x);
-  auto op = static_cast<T*>(out);
-  auto pp = static_cast<float*>(part);
-  auto pr = static_cast<int32_t*>(part_row);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    return launch_csr_reduce_v<T, true, kGather>(rp, c, wp, xp, op, pp, pr, n_rows, n_edges, F, s);
-  }
-  return launch_csr_reduce_v<T, false, kGather>(rp, c, wp, xp, op, pp, pr, n_rows, n_edges, F, s);
+// F is the width of a row of x and out (K3: all H heads, H dividing F; H = 1
+// otherwise). part: float32 [2 * tiles * F], part_row: int32 [2 * tiles], with
+// tiles = csr_reduce_tiles(n_rows, n_edges). row_ptr[n_rows] must equal n_edges.
+template <typename T, typename Op>
+int launch_csr_reduce(const void* row_ptr, const void* col, const void* w,
+                      const void* w_index, const void* x, void* out, void* part,
+                      void* part_row, int n_rows, int n_edges, int F, int H, int vec,
+                      void* stream) {
+  if (H < 1 || F % H != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const ReduceArgs<T> a{static_cast<const int32_t*>(row_ptr),
+                        static_cast<const int32_t*>(col),
+                        static_cast<const float*>(w),
+                        static_cast<const int32_t*>(w_index),
+                        static_cast<const T*>(x),
+                        static_cast<T*>(out),
+                        static_cast<float*>(part),
+                        static_cast<int32_t*>(part_row),
+                        n_rows, n_edges, F, H,
+                        static_cast<cudaStream_t>(stream)};
+  return vec ? launch_csr_reduce_v<T, true, Op>(a) : launch_csr_reduce_v<T, false, Op>(a);
 }
 
 }  // namespace gnn

@@ -9,15 +9,16 @@
 // weight[t_perm]), the source-gather VJP (col = t_perm, w = null) and the
 // blocked layout's remainder CSR.
 //
-// Design: csr_reduce.cuh with idx(k) = col[k] -- merge-path tiles of a fixed
+// Design: csr_reduce.cuh's Gather instance -- merge-path tiles of a fixed
 // number of row ends and edges per warp, col and w staged through shared
 // memory with cp.async, lane groups sized to F, a fixup launch for rows cut
 // by a tile boundary; float32 sums, no atomics, deterministic.
 //
-// What bounds it on an H100: the E * F gathered feature bytes of x (random
-// rows; at ogbn-arxiv scale x is 173 MB at F=256, over the 50 MB L2) plus 8
-// bytes of col and w an edge: 2.54 GB at F=256, a 0.76 ms floor at 3.35 TB/s;
-// at widths 8 and 1 the 10-20 MB of indices and an L2-resident x, ~0.01 ms.
+// What bounds it on an H100: bytes. Each input and output once (x, out, col,
+// w, row_ptr) is 367 MB at ogbn-arxiv scale and F=256 in float32, 0.110 ms at
+// 3.35 TB/s; with no reuse of a gathered row (x is 173 MB, over the 50 MB L2)
+// the E * F gathered bytes make it 2.73 GB, 0.815 ms. At widths 8 and 1 the
+// 10-20 MB of indices and an L2-resident x, ~0.01 ms.
 // The warp-per-row kernel this replaces followed the largest row instead (a
 // 21,305-edge hub walked by one warp: 7.9 ms at F=256, 1.8 ms at width 1);
 // with merge-path tiles no warp walks more than kWarpItems items, so the time
@@ -32,19 +33,20 @@ extern "C" {
 int gnn_csr_spmm_f32(const void* row_ptr, const void* col, const void* w,
                      const void* x, void* out, void* part, void* part_row,
                      int n_rows, int n_edges, int F, int vec, void* stream) {
-  return gnn::launch_csr_reduce<float, true>(row_ptr, col, w, x, out, part, part_row,
-                                             n_rows, n_edges, F, vec, stream);
+  return gnn::launch_csr_reduce<float, gnn::Gather>(row_ptr, col, w, nullptr, x, out, part,
+                                                    part_row, n_rows, n_edges, F, 1, vec,
+                                                    stream);
 }
 
 int gnn_csr_spmm_bf16(const void* row_ptr, const void* col, const void* w,
                       const void* x, void* out, void* part, void* part_row,
                       int n_rows, int n_edges, int F, int vec, void* stream) {
-  return gnn::launch_csr_reduce<__nv_bfloat16, true>(row_ptr, col, w, x, out, part,
-                                                     part_row, n_rows, n_edges, F,
-                                                     vec, stream);
+  return gnn::launch_csr_reduce<__nv_bfloat16, gnn::Gather>(row_ptr, col, w, nullptr, x, out,
+                                                            part, part_row, n_rows, n_edges,
+                                                            F, 1, vec, stream);
 }
 
-// Warp tiles of K1 and K2 over a CSR of n_rows rows and n_edges edges (the
+// Warp tiles of K1, K2 and K3 over a CSR of n_rows rows and n_edges edges (the
 // scratch holds 2 * tiles partials of F float32 and 2 * tiles rows); -1 where
 // n_rows + n_edges does not fit the kernels' int32 merge coordinates.
 int gnn_csr_reduce_tiles(int n_rows, int n_edges) {

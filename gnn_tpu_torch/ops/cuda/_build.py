@@ -21,7 +21,7 @@ import subprocess
 import threading
 import time
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load", "build_info"]
+__all__ = ["NVCC_FLAGS", "build_dir", "find_nvcc", "load", "build_info"]
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
@@ -45,11 +45,11 @@ _SIGNATURES = {
     # row_ptr, msg, out, part, part_row, n_rows, n_edges, F, vec, stream
     "gnn_segment_sum_f32": [_VOID] * 5 + [_INT] * 4 + [_VOID],
     "gnn_segment_sum_bf16": [_VOID] * 5 + [_INT] * 4 + [_VOID],
-    # n_rows, n_edges -> warp tiles of K1 / K2's scratch
+    # n_rows, n_edges -> warp tiles of the kernels' scratch
     "gnn_csr_reduce_tiles": [_INT] * 2,
-    # row_ptr, col, w, x, out, n_rows, H, F, vec, stream
-    "gnn_gat_spmm_f32": [_VOID] * 5 + [_INT] * 4 + [_VOID],
-    "gnn_gat_spmm_bf16": [_VOID] * 5 + [_INT] * 4 + [_VOID],
+    # row_ptr, col, w, w_index, x, out, part, part_row, n_rows, n_edges, H, F, vec, stream
+    "gnn_gat_spmm_f32": [_VOID] * 8 + [_INT] * 5 + [_VOID],
+    "gnn_gat_spmm_bf16": [_VOID] * 8 + [_INT] * 5 + [_VOID],
 }
 
 
@@ -61,7 +61,7 @@ def _sources():
     return sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh"))
 
 
-def _nvcc() -> str:
+def find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -86,7 +86,7 @@ def _build() -> pathlib.Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in cu]
-    nvcc = _nvcc()
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
     compiles = [
         (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

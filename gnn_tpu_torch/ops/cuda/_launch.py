@@ -50,8 +50,9 @@ def stream(device: torch.device) -> int:
 
 
 def reduce_scratch(lib, n_rows: int, n_edges: int, F: int, device: torch.device) -> tuple:
-    """K1 / K2's scratch: a float32 partial of F features and its row for the
-    head and the tail of every merge-path warp tile."""
+    """The kernels' scratch: a float32 partial of F features (K3: of all its
+    heads) and its row for the head and the tail of every merge-path warp
+    tile."""
     tiles = lib.gnn_csr_reduce_tiles(n_rows, n_edges)
     if tiles < 0:
         raise ValueError(f"{n_rows} rows + {n_edges} edges exceed the kernels' int32 merge coordinates")

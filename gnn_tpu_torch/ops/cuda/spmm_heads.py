@@ -5,9 +5,15 @@ Port of the numerator of ``gnn_tpu/mp/gat.py::GATConv`` (:193-202):
 num[d, h, :] = sum over in-edges e=(s -> d) of ex_num[e, h] * h[s, h, :], which
 the JAX package writes out as an [E, H * F] array and reduces with the Pallas
 segment sum. Forward runs the kernel over ``(row_ptr, src, w)``; backward runs
-the same kernel over the transpose CSR ``(t_row_ptr, dst[t_perm], w[t_perm])``
-for dh, and the SDDMM dw[e, h] = <g[dst_e, h, :], x[src_e, h, :]> in plain
-torch (the JAX package computes it in XLA too).
+the same kernel over the transpose CSR ``(t_row_ptr, dst[t_perm])`` for dh,
+reading the weight of transposed edge k in place at ``w[t_perm[k]]``
+(``w_index``), and the SDDMM dw[e, h] = <g[dst_e, h, :], x[src_e, h, :]> in
+plain torch (the JAX package computes it in XLA too).
+
+The kernel is the multi-head instance of the merge-path CSR reduction that
+K1 and K2 share (``csrc/csr_reduce.cuh``): rows of H * F features, a weight
+per edge and head, a fixup launch inside the same C entry for rows cut by a
+tile boundary, its scratch from ``_launch.reduce_scratch``.
 
 The weights are rounded to x's dtype before they scale it, as
 ``ex_num.astype(h_src.dtype)`` does at ``gnn_tpu/mp/gat.py:199``; sums are
@@ -19,6 +25,8 @@ float32 and the output has x's dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -32,26 +40,38 @@ def _round_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def csr_spmm_heads_plain(
-    row_ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, x: torch.Tensor
+    row_ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+    w_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of the kernel: gather, scale per head, ``index_add_`` in
     float32, then a cast to x's dtype."""
-    msg = x.float().index_select(0, col.long()) * _round_weight(w, x.dtype).float()[:, :, None]
+    w = _round_weight(w, x.dtype)
+    if w_index is not None:
+        w = w.index_select(0, w_index.long())
+    msg = x.float().index_select(0, col.long()) * w[:, :, None]
     out = torch.zeros((row_ptr.numel() - 1,) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
     out.index_add_(0, _launch.row_ids(row_ptr, col.numel()), msg)
     return out.to(x.dtype)
 
 
 def csr_spmm_heads(
-    row_ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, x: torch.Tensor
+    row_ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+    w_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """out[r, h, :] = sum_{k in [row_ptr[r], row_ptr[r+1])} w[k, h] * x[col[k], h, :].
+    """out[r, h, :] = sum_{k in [row_ptr[r], row_ptr[r+1])} w[i(k), h] * x[col[k], h, :]
+    with i(k) = k, or ``w_index[k]`` where ``w_index`` is given.
 
-    int32 ``row_ptr``/``col``, float32 ``w`` [E, H], float32 or bfloat16
-    ``x`` [N_src, H, F]; the output [N_rows, H, F] has x's dtype.
+    int32 ``row_ptr``/``col``/``w_index``, float32 ``w`` [E, H], float32 or
+    bfloat16 ``x`` [N_src, H, F]; the output [N_rows, H, F] has x's dtype.
+
+    The caller guarantees the index ranges, which are not checked (a check
+    would sync the device): ``row_ptr`` non-decreasing from 0 to E, ``col`` in
+    [0, N_src) and ``w_index`` in [0, E). The kernel reads ``x`` and ``w`` at
+    them as they are, so an entry out of range reads out of bounds. The
+    training path passes an ``Adjacency``'s own arrays, built on the host.
     """
     if x.device.type == "cpu":
-        return csr_spmm_heads_plain(row_ptr, col, w, x)
+        return csr_spmm_heads_plain(row_ptr, col, w, x, w_index)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmm_heads runs on CUDA or CPU tensors, got {x.device}")
     if x.ndim != 3:
@@ -61,23 +81,31 @@ def csr_spmm_heads(
     suffix = _launch.check_features("x", x2)
     _launch.check_index("row_ptr", row_ptr, x.device)
     _launch.check_index("col", col, x.device)
+    if w_index is not None:
+        _launch.check_index("w_index", w_index, x.device)
+        if w_index.numel() != col.numel():
+            raise ValueError(f"w_index must have {col.numel()} entries, got {w_index.numel()}")
     if w.device != x.device:
         raise ValueError(f"w is on {w.device}, expected {x.device}")
     if w.dtype != torch.float32 or w.shape != (col.numel(), H) or not w.is_contiguous():
         raise ValueError(
             f"w must be a contiguous float32 [{col.numel()}, {H}] tensor, got {w.dtype} {tuple(w.shape)}"
         )
-    n_rows = row_ptr.numel() - 1
+    n_rows, n_edges = row_ptr.numel() - 1, col.numel()
     out = torch.empty((n_rows, H, F), dtype=x.dtype, device=x.device)
     if n_rows == 0 or H * F == 0:
         return out
     w = _round_weight(w, x.dtype)
+    # F % 4 == 0 keeps the four features of a vector load in one head
     vec = int(F % 4 == 0 and _launch.vector_path(x2, out.view(n_rows, H * F)))
-    fn = getattr(_build.load(), f"gnn_gat_spmm_{suffix}")
+    lib = _build.load()
     with torch.cuda.device(x.device):
-        rc = fn(
-            row_ptr.data_ptr(), col.data_ptr(), w.data_ptr(), x.data_ptr(), out.data_ptr(),
-            n_rows, H, F, vec, _launch.stream(x.device),
+        part, part_row = _launch.reduce_scratch(lib, n_rows, n_edges, H * F, x.device)
+        rc = getattr(lib, f"gnn_gat_spmm_{suffix}")(
+            row_ptr.data_ptr(), col.data_ptr(), w.data_ptr(),
+            None if w_index is None else w_index.data_ptr(),
+            x.data_ptr(), out.data_ptr(), part.data_ptr(), part_row.data_ptr(),
+            n_rows, n_edges, H, F, vec, _launch.stream(x.device),
         )
     _launch.raise_on_error("csr_spmm_heads", rc)
     csr_spmm_heads.launches += 1
@@ -101,13 +129,15 @@ class _SpmmHeads(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            t_w = w.index_select(0, adj.t_perm.long())
-            dx = csr_spmm_heads(adj.t_row_ptr, adj.t_col, t_w, g)
+            dx = csr_spmm_heads(adj.t_row_ptr, adj.t_col, w, g, w_index=adj.t_perm)
         if ctx.needs_input_grad[1]:
-            dw = (
-                g.float().index_select(0, adj.dst.long())
-                * x.float().index_select(0, adj.src.long())
-            ).sum(-1)
+            # a profiler range around the SDDMM: tools/profile_gcn_step.py
+            # splits the step's device time by it (no cost without a profiler)
+            with torch.profiler.record_function("spmm_heads.dw"):
+                dw = (
+                    g.float().index_select(0, adj.dst.long())
+                    * x.float().index_select(0, adj.src.long())
+                ).sum(-1)
         return dx, dw, None
 
 

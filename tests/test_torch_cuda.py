@@ -176,29 +176,101 @@ def _attention_graph(device, n=3000):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,F,aligned", [(8, 32, True), (1, 40, True), (3, 5, True), (4, 8, False)])
+@pytest.mark.parametrize(
+    "H,F,aligned",
+    [(8, 32, True), (1, 40, True), (3, 5, True), (4, 8, False), (8, 1, True), (1, 1, True), (2, 2, True)],
+)
 def test_spmm_heads_matches_plain_version_on_card(cuda_device, dtype, H, F, aligned):
     """K3 forward and transpose against its plain version, with weights
     normalized per destination as GAT's attention is (so the sums stay
-    O(1)); tolerances as for K1 above."""
+    O(1)); tolerances as for K1 above. The transpose reads its weights in
+    place through w_index = t_perm and gives the bits of the call on the
+    permuted copy; two calls give equal bits; each call counts one launch."""
     adj = _attention_graph(cuda_device)
     n, e = adj.num_dst_nodes, adj.num_edges
-    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=2e-2, atol=1e-3)
     w = torch.rand(e, H, device=cuda_device)
     w = w / tops.segment_sum(w, adj.dst, n).index_select(0, adj.dst.long())
     x = (torch.randn(n, H, F, device=cuda_device).to(dtype) if aligned
          else _misaligned(n, H * F, dtype, cuda_device).view(n, H, F))
     k3 = csr_spmm_heads.launches
     got = csr_spmm_heads(adj.row_ptr, adj.src, w, x)
-    assert got.shape == (n, H, F) and got.dtype == dtype
-    torch.testing.assert_close(got.float(), csr_spmm_heads_plain(adj.row_ptr, adj.src, w, x).float(), **tol)
+    assert got.shape == (n, H, F)
+    _check_deterministic(csr_spmm_heads, csr_spmm_heads_plain, (adj.row_ptr, adj.src, w, x), dtype)
+    t_args = (adj.t_row_ptr, adj.t_col, w, x, adj.t_perm)
+    _check_deterministic(csr_spmm_heads, csr_spmm_heads_plain, t_args, dtype)
     t_w = w.index_select(0, adj.t_perm.long())
-    got = csr_spmm_heads(adj.t_row_ptr, adj.t_col, t_w, x)
-    torch.testing.assert_close(
-        got.float(), csr_spmm_heads_plain(adj.t_row_ptr, adj.t_col, t_w, x).float(), **tol
-    )
+    assert torch.equal(csr_spmm_heads(adj.t_row_ptr, adj.t_col, t_w, x), csr_spmm_heads(*t_args))
     torch.cuda.synchronize()
-    assert csr_spmm_heads.launches - k3 == 2
+    assert csr_spmm_heads.launches - k3 == 7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", list(_SKEWED_DEGREES))
+def test_spmm_heads_on_skewed_rows_on_card(cuda_device, dtype, layout):
+    """K3 on the hand-made CSRs above (a hub much longer than a tile, rows
+    that end on tile boundaries, empty rows, no edges), so that whole rows,
+    head and tail partials and the fixup all run, at GAT's shapes, on the
+    scalar path (3, 5) and at widths below a warp; with and without
+    w_index. Positive features and weights, as for K1 and K2 above."""
+    rng = np.random.default_rng(1)
+    deg = np.asarray(_SKEWED_DEGREES[layout])
+    row_ptr = np.concatenate([[0], np.cumsum(deg)])
+    e, n_src = int(row_ptr[-1]), 1000
+    as_dev = lambda a: torch.from_numpy(a).to(cuda_device)
+    rp = as_dev(row_ptr.astype(np.int32))
+    col = as_dev(rng.integers(0, n_src, e).astype(np.int32))
+    w_index = as_dev(rng.permutation(e).astype(np.int32))
+    for H, F in ((8, 32), (1, 40), (3, 5), (8, 1), (2, 4)):
+        w = as_dev(rng.random((e, H)).astype(np.float32))
+        x = as_dev(rng.random((n_src, H, F), dtype=np.float32)).to(dtype)
+        k3 = csr_spmm_heads.launches
+        _check_deterministic(csr_spmm_heads, csr_spmm_heads_plain, (rp, col, w, x), dtype)
+        _check_deterministic(csr_spmm_heads, csr_spmm_heads_plain, (rp, col, w, x, w_index), dtype)
+        torch.cuda.synchronize()
+        assert csr_spmm_heads.launches - k3 == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["power-law", "star"])
+@pytest.mark.parametrize("F", [1, 5, 40, 256])
+def test_spmm_heads_one_head_is_csr_spmm_on_card(cuda_device, layout, F):
+    """With one head K3 sums the products of K1 in K1's order: equal bits
+    (float32; in bfloat16 K3 alone rounds its weights)."""
+    if layout == "power-law":
+        adj = _attention_graph(cuda_device)
+        rp, col, n_src = adj.row_ptr, adj.src, adj.num_dst_nodes
+    else:
+        deg = np.asarray(_SKEWED_DEGREES[layout])
+        rp = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)).to(cuda_device)
+        n_src = 1000
+        col = torch.randint(0, n_src, (int(deg.sum()),), dtype=torch.int32, device=cuda_device)
+    w = torch.rand(col.numel(), device=cuda_device)
+    x = torch.rand(n_src, F, device=cuda_device)
+    got = csr_spmm_heads(rp, col, w[:, None], x[:, None, :])
+    assert torch.equal(got[:, 0, :], csr_spmm(rp, col, w, x))
+
+
+@pytest.mark.gpu
+def test_spmm_heads_rejects_bad_arguments(cuda_device):
+    rp = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device)
+    col = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    x = torch.randn(2, 4, 8, device=cuda_device)
+    w = torch.rand(2, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        csr_spmm_heads(rp, col, torch.rand(4, 2, device=cuda_device).t(), x)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        csr_spmm_heads(rp, col, w[:, :2].contiguous(), x)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        csr_spmm_heads(rp, col, w.double(), x)
+    with pytest.raises(ValueError, match=r"\[N, H, F\]"):
+        csr_spmm_heads(rp, col, w, x[:, 0])
+    with pytest.raises(ValueError, match="w_index.*int32"):
+        csr_spmm_heads(rp, col, w, x, col.long())
+    with pytest.raises(ValueError, match="w_index must have 2 entries"):
+        csr_spmm_heads(rp, col, w, x, rp)
+    with pytest.raises(ValueError, match="is on cpu"):
+        csr_spmm_heads(rp, col, w.cpu(), x)
 
 
 @pytest.mark.gpu

@@ -182,7 +182,8 @@ def test_data_checks_and_npz_round_trip(tmp_path):
 def test_port_imports_without_jax():
     code = (
         "import sys, gnn_tpu_torch, gnn_tpu_torch.train.cli, gnn_tpu_torch.ops.cuda, "
-        "gnn_tpu_torch.ops.cuda.spmm_heads, gnn_tpu_torch.ops.gather, gnn_tpu_torch.mp.gat, "
+        "gnn_tpu_torch.ops.cuda.spmm_heads, gnn_tpu_torch.ops.cuda.bounds, gnn_tpu_torch.ops.gather, "
+        "gnn_tpu_torch.mp.gat, "
         "gnn_tpu_torch.models.gat, gnn_tpu_torch.native, gnn_tpu_torch.graphs.blocked; "
         "assert 'jax' not in sys.modules, 'jax imported'; "
         "assert not any(m.startswith('gnn_tpu.') or m == 'gnn_tpu' for m in sys.modules)"

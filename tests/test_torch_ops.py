@@ -204,6 +204,44 @@ def test_spmm_heads_matches_jax_segment_kernel(rng):
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(j_dw), rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,F", [(4, 8), (1, 40), (3, 5)])
+def test_spmm_heads_w_index_is_the_permuted_copy(rng, dtype, H, F):
+    """w_index reads w[w_index[k]] in place: the same products in the same
+    order as the call on the permuted copy w[w_index], so equal bits. The
+    transpose of the training path is this with w_index = t_perm."""
+    from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain
+
+    _, tadj = _gat_graph(rng, "csr")
+    n, E = tadj.num_dst_nodes, tadj.num_edges
+    w = torch.from_numpy(rng.random((E, H)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, H, F)).astype(np.float32)).to(dtype)
+    t_w = w.index_select(0, tadj.t_perm.long())
+    want = csr_spmm_heads_plain(tadj.t_row_ptr, tadj.t_col, t_w, g)
+    for fn in (csr_spmm_heads_plain, csr_spmm_heads):
+        got = fn(tadj.t_row_ptr, tadj.t_col, w, g, tadj.t_perm)
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_spmm_heads_backward_transposes_through_t_perm(rng):
+    """dh of spmm_heads_csr is A_w^T g: entry (s, h) sums w[e, h] * g[dst_e, h]
+    over the out-edges e of s, in float64 here; rtol=1e-5 for the float32
+    sums in another order."""
+    from gnn_tpu_torch.ops.cuda.spmm_heads import spmm_heads_csr
+
+    _, tadj = _gat_graph(rng, "csr")
+    n, E, H, F = tadj.num_dst_nodes, tadj.num_edges, 2, 6
+    w = torch.from_numpy(rng.random((E, H)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, H, F)).astype(np.float32))
+    h = torch.zeros(n, H, F, requires_grad=True)
+    spmm_heads_csr(tadj, h, w).backward(g)
+    want = torch.zeros(n, H, F, dtype=torch.float64).index_add_(
+        0, tadj.src.long(), w.double()[:, :, None] * g.double()[tadj.dst.long()]
+    )
+    torch.testing.assert_close(h.grad.double(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_spmm_heads_one_head_is_csr_spmm(rng):
     from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads_plain
 

@@ -23,8 +23,16 @@ then traces ``--steps`` steps with ``torch.profiler``. It prints:
 - device ms, launches and share of busy time per kernel name;
 - with ``--reorder cluster``, the busy time split into the block product
   (the kernels inside ``blocked_matvec``'s ``blocked_matvec.diag`` range:
-  pad, bmm, cast), K1 (``csr_reduce_kernel`` and ``csr_reduce_fixup``: the
-  remainder; the cluster step launches no K2) and the rest.
+  pad, bmm, cast), the kernels and the rest;
+- with ``--model gat``, the busy time split into the SDDMM ``d ex`` (the
+  kernels inside ``_SpmmHeads.backward``'s ``spmm_heads.dw`` range, itemized
+  as gathers, multiply and reduce), the kernels and the rest, and K3's time
+  beside its bound from ``gnn_tpu_torch.ops.cuda.bounds``.
+
+The hand-written kernels are told apart by the instance of
+``gnn::csr_reduce_kernel<T, vec, lanes, Op>`` / ``gnn::csr_reduce_fixup<T, vec,
+Op>`` in their names: ``gnn::Gather`` K1, ``gnn::Contiguous`` K2,
+``gnn::GatherHeads`` K3.
 
 ``--trace`` also writes a Chrome trace to PATH. It needs a CUDA device.
 """
@@ -47,6 +55,7 @@ from chip_smoke import (  # noqa: E402
     log, nvidia_smi,
 )
 from gnn_tpu_torch.nn import cross_entropy  # noqa: E402
+from gnn_tpu_torch.ops.cuda import bounds  # noqa: E402
 from gnn_tpu_torch.train.loop import build_model, build_optimizer  # noqa: E402
 
 DEVICE_TYPES = (DeviceType.CUDA,)
@@ -67,28 +76,40 @@ def union_us(intervals) -> float:
     return total
 
 
-def split_blocked(prof_events, kernels, steps: int) -> dict:
-    """Device ms per step of the block product (kernels inside a
-    ``blocked_matvec.diag`` annotation range on the device), of K1 and of the
-    rest."""
+# The Op in a kernel's name -> the port's kernel.
+KERNEL_OPS = (("gnn::GatherHeads", "K3 csr_reduce_* GatherHeads"), ("gnn::Gather", "K1 csr_reduce_* Gather"),
+              ("gnn::Contiguous", "K2 csr_reduce_* Contiguous"))
+# Substrings of the names of PyTorch's kernels inside the SDDMM range.
+SDDMM_PARTS = (("gather", "gathers"), ("index", "gathers"), ("reduce", "reduce"))
+
+
+def split_by_range(prof_events, kernels, steps: int, range_name: str, inside) -> dict:
+    """Device ms and launches per step of the kernels inside a
+    ``range_name`` annotation range on the device (keyed by ``inside(kernel
+    name)``), of K1, K2, K3 and of the rest. Empty where the trace holds no
+    such range."""
     ranges = [
         (e.time_range.start, e.time_range.end) for e in prof_events
         if e.device_type in DEVICE_TYPES and getattr(e, "is_user_annotation", False)
-        and e.name == "blocked_matvec.diag"
+        and e.name == range_name
     ]
     if not ranges:
         return {}
-    out = {"block product (pad, bmm, cast)": 0.0, "K1 csr_reduce_* (remainder)": 0.0, "rest": 0.0}
+    out = defaultdict(lambda: [0.0, 0.0])
     for e in kernels:
         start, end = e.time_range.start, e.time_range.end
         if any(lo <= start and end <= hi for lo, hi in ranges):
-            key = "block product (pad, bmm, cast)"
-        elif "csr_reduce_" in e.name:
-            key = "K1 csr_reduce_* (remainder)"
+            key = inside(e.name)
         else:
-            key = "rest"
-        out[key] += (end - start) / 1e3 / steps
-    return out
+            key = next((label for op, label in KERNEL_OPS if op in e.name), "rest")
+        out[key][0] += (end - start) / 1e3 / steps
+        out[key][1] += 1 / steps
+    return dict(out)
+
+
+def sddmm_part(name: str) -> str:
+    part = next((label for sub, label in SDDMM_PARTS if sub in name.lower()), "multiply")
+    return f"SDDMM d ex: {part}"
 
 
 def timed_ms(step, n: int) -> float:
@@ -171,12 +192,24 @@ def main(argv=None) -> int:
     log(f"{'device ms/step':>14s} {'launches/step':>13s} {'share':>6s}  kernel")
     for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0]):
         log(f"{ms:14.3f} {count / args.steps:13.1f} {ms / busy:6.1%}  {name[:100]}")
+    splits = []
     if args.reorder == "cluster":
-        split = split_blocked(events, device_events, args.steps)
+        splits.append(("blocked", "blocked_matvec.diag", lambda name: "block product (pad, bmm, cast)"))
+    if args.model == "gat":
+        splits.append(("gat", "spmm_heads.dw", sddmm_part))
+    for label, range_name, inside in splits:
+        split = split_by_range(events, device_events, args.steps, range_name, inside)
         if not split:
-            log("blocked split: not measured (the trace holds no device-side blocked_matvec.diag range)")
-        for key, ms in split.items():
-            log(f"blocked split: {key}: {ms:.3f} ms/step ({ms / busy:.1%} of busy)")
+            log(f"{label} split: not measured (the trace holds no device-side {range_name} range)")
+        for key, (ms, count) in sorted(split.items()):
+            log(f"{label} split: {key}: {ms:.3f} ms/step in {count:.1f} launches ({ms / busy:.1%} of busy)")
+    if args.model == "gat":
+        n, e, size = adj.num_dst_nodes, adj.num_edges, 4
+        k3 = [bounds.csr_spmm_heads_bound(n, n, e, cfg.model.heads, cfg.model.hidden, size, indexed=t)
+              for t in (False, True)]
+        k3 += [bounds.csr_spmm_heads_bound(n, n, e, 1, int(data.y.max()) + 1, size, indexed=t) for t in (False, True)]
+        log(f"K3 bound of a training step's 4 launches: {sum(b.bound_ms for b in k3):.3f} ms "
+            f"(no reuse {sum(b.noreuse_ms for b in k3):.3f} ms)")
     return 0
 
 
