@@ -11,7 +11,8 @@ law, 169,343 nodes, about 2.5 M normalized edges with self loops), float32
 and bfloat16, and times both with CUDA events: K1 and K2 at F in {40, 128,
 256} (the GCN widths), then the GAT shapes: K3 forward and transpose at (H,
 F) = (8, 32) and (1, 40), K2 at widths 8 and 1 (the softmax denominator), K1
-over ``col = t_perm`` at width 8 (the VJP of the source gather); each
+over ``col = t_perm`` at width 8 (the VJP of the source gather), K1 with a
+null weight at F in {128, 256} (GIN's plain neighbour sum); each
 kernel call is also repeated and must give the same bits. Every row states
 its bound from ``gnn_tpu_torch.ops.cuda.bounds`` (``bound_ms``: each input
 and output byte once at 3.35 TB/s, or the operations at 67 TFLOP/s if that
@@ -33,11 +34,18 @@ classes) for 5 epochs on the power-law graph through
 phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
 classes) for 5 epochs there; phase 2-cluster trains the GCN on the clustered
 graph twice with the same seeds, with ``train.reorder='cluster'`` (the
-blocked layout) and ``'auto'`` (the CSR). Each checks its losses and that it
+blocked layout) and ``'auto'`` (the CSR). Phases 2-encoder, 2-sage and 2-gin
+train, 5 epochs each on the power-law graph, the reference's flagship
+EncoderGCN (pre-MLP 128 -> 256 -> 128, two mid-block convs at 128, post-MLP
+to 40 classes; Adam), GraphSAGE (3 x 256, mean; Adam) and GIN (3 x 256; SGD
+with momentum and gradient clipping), all of whose aggregation is K1. Each
+checks its losses and that it
 launched its kernels as often as its layers ask. Phase 3 checks the kernel
-path against the CPU path on a small graph for GCN, GAT and the blocked GCN,
+path against the CPU path on a small graph for GCN, GAT, the blocked GCN,
+EncoderGCN (with its BatchNorm buffers), GraphSAGE (mean and max) and GIN,
 trains the Kipf GCN (on the CSR and on the blocked layout) and the GAT
-recipes on ``cora_like`` into their accuracy bands, and runs the CLI.
+recipes on ``cora_like`` into their accuracy bands, and runs the CLI for
+every model and for SGD with clipping.
 
 The next-to-last line of standard output is a JSON object with each
 kernel's launches (in all, and per training step of each path, the
@@ -62,7 +70,7 @@ from gnn_tpu_torch import native
 from gnn_tpu_torch.graphs import Data, build_adjacency, gcn_norm, power_law, to_undirected
 from gnn_tpu_torch.graphs.blocked import _diag_product, blocked_matvec, blocked_matvec_plain
 from gnn_tpu_torch.graphs.generate import clustered_power_law, cora_like, stochastic_block_model
-from gnn_tpu_torch.models import GAT, GCN
+from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
 from gnn_tpu_torch.ops.cuda import _build, bounds
@@ -77,6 +85,7 @@ E_DIRECTED = 1_157_799
 IN_FEATURES, NUM_CLASSES = 128, 40
 WIDTHS = (40, 128, 256)
 GAT_HEADS = ((8, 32), (1, 40))  # (H, F) of the hidden and the output layer
+UNWEIGHTED_WIDTHS = (128, 256)  # K1 with a null weight: GIN's input and hidden widths
 # (block_rows, block dtype) of phase 1-blocked: fit's default, and the
 # configuration of bench.py's blocked workload
 BLOCKED_CONFIGS = ((256, None), (512, torch.bfloat16))
@@ -479,6 +488,41 @@ def phase1_gat(adj, dev, results, by_graph) -> None:
         torch.cuda.empty_cache()
 
 
+def phase1_unweighted(adj, dev, results) -> None:
+    """K1 with a null weight (GIN's plain neighbour sum), forward and
+    transpose at GIN's widths, against its plain version, a second call and,
+    in float32, ``torch.sparse.mm`` over a CSR of ones. Positive inputs in
+    [0, 1/256): a hub sums 21,305 unscaled rows (to about 40 here), and
+    without cancellation the two summation orders agree to a relative
+    float32 error."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, e = adj.num_dst_nodes, adj.num_edges
+    ones = torch.ones(e, device=dev)
+    cases = (
+        ("fwd A@x, w null", (adj.row_ptr, adj.src), sparse_csr(adj.row_ptr, adj.src, ones, n)),
+        ("bwd dx, w null", (adj.t_row_ptr, adj.t_col), sparse_csr(adj.t_row_ptr, adj.t_col, ones, n)),
+    )
+    for F in UNWEIGHTED_WIDTHS:
+        x32 = torch.rand(n, F, generator=gen, device=dev) / 256
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"F={F} {str(dtype).removeprefix('torch.')}"
+            x = x32.to(dtype)
+            bound = bounds.csr_spmm_bound(n, n, e, F, x.element_size(), weighted=False)
+            for what, (ptr, col), a in cases:
+                args = (ptr, col, None, x)
+                got = csr_spmm(*args)
+                err = compare(f"csr_spmm {what} {tag}", got, csr_spmm_plain(*args), dtype)
+                check_repeat(f"csr_spmm {what} {tag}", csr_spmm, args, got)
+                lib = None
+                if dtype == torch.float32:
+                    lib = library_ms(f"csr_spmm {what} {tag}", lambda: torch.sparse.mm(a, x), got)
+                record(results, "csr_spmm", what, tag, dtype, err, time_ms(lambda: csr_spmm(*args)),
+                       time_ms(lambda: csr_spmm_plain(*args)), bound, lib, F=F)
+            log(f"phase1 bitwise repeat {tag}: K1 fwd and dx with a null weight equal")
+        del x32
+        torch.cuda.empty_cache()
+
+
 def arxiv_scale_data(edges: np.ndarray) -> Data:
     """Seeded 128-dim features, 40 classes and a 54/18/28 % split (the
     proportions of ogbn-arxiv) on the arxiv-scale graph."""
@@ -518,16 +562,49 @@ def arxiv_gat_config(epochs: int = 5) -> Config:
     return cfg
 
 
+def arxiv_encoder_config(epochs: int = 5) -> Config:
+    """The reference's flagship recipe at arxiv's widths: pre-MLP 128 -> 256
+    -> 128, two GCNConv with the BatchNorm/ReLU mid-block at 128 and tanh,
+    post-MLP 128 -> 40. Dropout 0.5, Adam lr 0.01."""
+    cfg = Config()
+    cfg.model.name, cfg.model.num_layers, cfg.model.dropout = "encoder_gcn", 2, 0.5
+    cfg.optim.name, cfg.optim.lr = "adam", 0.01
+    cfg.train.epochs, cfg.train.eval_every = epochs, 1
+    return cfg
+
+
+def arxiv_sage_config(epochs: int = 5) -> Config:
+    """GraphSAGE 3 x 256, mean aggregator, dropout 0.5, Adam lr 0.01: the
+    OGB GraphSAGE baseline's width for arxiv."""
+    cfg = Config()
+    cfg.model.name, cfg.model.num_layers, cfg.model.hidden, cfg.model.dropout = "sage", 3, 256, 0.5
+    cfg.model.aggr = "mean"
+    cfg.optim.name, cfg.optim.lr = "adam", 0.01
+    cfg.train.epochs, cfg.train.eval_every = epochs, 1
+    return cfg
+
+
+def arxiv_gin_config(epochs: int = 5) -> Config:
+    """GIN 3 x 256 under SGD (momentum 0.9, lr 0.01) with the gradients'
+    global norm clipped to 1."""
+    cfg = Config()
+    cfg.model.name, cfg.model.num_layers, cfg.model.hidden = "gin", 3, 256
+    cfg.optim.name, cfg.optim.lr, cfg.optim.momentum, cfg.optim.grad_clip = "sgd", 0.01, 0.9, 1.0
+    cfg.train.epochs, cfg.train.eval_every = epochs, 1
+    return cfg
+
+
 def read_counters() -> dict:
     return {name: counter.launches for name, counter in COUNTERS.items()}
 
 
-def train_phase(label: str, cfg: Config, data: Data, dev, want: dict) -> tuple:
+def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None) -> tuple:
     """Train through ``fit`` with every launch counter at 0 just before and
     read just after; check finite losses and the launches per kernel.
     Returns the launches in all and those of one training step: the counters
     are also read around each of ``fit``'s evaluations, whose launches are
-    taken off before dividing by the epochs."""
+    taken off before dividing by the epochs. ``check(model, state)`` looks
+    at what ``fit`` returned."""
     in_eval = dict.fromkeys(COUNTERS, 0)
     evaluate = loop.evaluate
 
@@ -542,10 +619,12 @@ def train_phase(label: str, cfg: Config, data: Data, dev, want: dict) -> tuple:
         counter.launches = 0
     loop.evaluate = counted_evaluate
     try:
-        _, _, history = fit(cfg, data, device=dev, verbose=False)
+        model, state, history = fit(cfg, data, device=dev, verbose=False)
     finally:
         loop.evaluate = evaluate
     launches = read_counters()
+    if check is not None:
+        check(model, state)
     per_step = {name: (launches[name] - in_eval[name]) / cfg.train.epochs for name in COUNTERS}
 
     losses = [h["loss"] for h in history]
@@ -567,8 +646,7 @@ def phase2(data: Data, dev) -> tuple:
     Linear output) and once a layer in the evaluation."""
     cfg = arxiv_gcn_config()
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 0}
-    return train_phase("phase2", cfg, data, dev, want)
+    return train_phase("phase2", cfg, data, dev, k1_only(3 * n))
 
 
 def phase2_gat(data: Data, dev) -> tuple:
@@ -582,6 +660,55 @@ def phase2_gat(data: Data, dev) -> tuple:
     return train_phase("phase2-gat", cfg, data, dev, want)
 
 
+def k1_only(count: int) -> dict:
+    return {"csr_spmm": count, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 0}
+
+
+def phase2_encoder(data: Data, dev) -> tuple:
+    """The flagship EncoderGCN at arxiv scale. K1's input in a mid-block
+    conv is dropout(relu(batch_norm(lin(x)))), which always needs a
+    gradient, so each of the 2 convs runs K1 forward, backward (dx) and in
+    the evaluation: 3 * 2 an epoch. The running statistics that ``fit``
+    returns must be finite and moved from their initial (0, 1)."""
+    cfg = arxiv_encoder_config()
+
+    def check(model, state):
+        if state is None or list(state) != [name for name, _ in model.named_buffers()]:
+            raise AssertionError(f"phase2-encoder: fit returned buffer state {state}")
+        for name, value in state.items():
+            initial = torch.zeros_like(value) if name.endswith("running_mean") else torch.ones_like(value)
+            if not torch.isfinite(value).all() or torch.equal(value, initial):
+                raise AssertionError(f"phase2-encoder: buffer {name} is non-finite or still initial")
+        log(f"phase2-encoder buffers: {len(state)} finite, all moved from (0, 1); "
+            f"convs.0 running_var mean {state['convs.0.batch_norm.running_var'].mean().item():.4f}")
+
+    want = k1_only(3 * cfg.train.epochs * cfg.model.num_layers)
+    return train_phase("phase2-encoder", cfg, data, dev, want, check)
+
+
+def first_layer_free(cfg: Config) -> dict:
+    """K1's launches where the first layer aggregates the data itself
+    (GraphSAGE, GIN): its input needs no gradient, so autograd runs no dx
+    there. An epoch runs K1 L times forward, L - 1 times backward and L
+    times in the evaluation."""
+    L = cfg.model.num_layers
+    return k1_only(cfg.train.epochs * (L + (L - 1) + L))
+
+
+def phase2_sage(data: Data, dev) -> tuple:
+    """GraphSAGE 3 x 256 (mean): K1 with the gcn_norm weights at F = 128,
+    256, 256, then the division by the edge counts in plain torch."""
+    cfg = arxiv_sage_config()
+    return train_phase("phase2-sage", cfg, data, dev, first_layer_free(cfg))
+
+
+def phase2_gin(data: Data, dev) -> tuple:
+    """GIN 3 x 256 under SGD with gradient clipping: K1 with a null weight
+    at F = 128, 256, 256."""
+    cfg = arxiv_gin_config()
+    return train_phase("phase2-gin", cfg, data, dev, first_layer_free(cfg))
+
+
 def phase2_cluster(data: Data, dev) -> dict:
     """The GCN on the clustered graph through ``fit``, with the same seeds,
     first with ``train.reorder='cluster'``: each blocked product (3 layers x
@@ -591,7 +718,7 @@ def phase2_cluster(data: Data, dev) -> dict:
     out = {}
     for reorder, want in (
         ("cluster", {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 3 * n}),
-        ("auto", {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 0}),
+        ("auto", k1_only(3 * n)),
     ):
         cfg = arxiv_gcn_config()
         cfg.train.reorder = reorder
@@ -600,7 +727,8 @@ def phase2_cluster(data: Data, dev) -> dict:
 
 
 def card_vs_cpu(label: str, make_model, data: Data, adj_cpu, dev) -> None:
-    """Logits and gradients of one model on the card against the CPU."""
+    """Logits, gradients and (after the train-mode forwards) buffers of one
+    model on the card against the CPU."""
     model_cpu = make_model(torch.Generator().manual_seed(0))
     model_gpu = make_model(None).to(dev)
     model_gpu.load_state_dict(model_cpu.state_dict())
@@ -610,8 +738,13 @@ def card_vs_cpu(label: str, make_model, data: Data, adj_cpu, dev) -> None:
     compare(f"phase3 small-graph {label} logits (card vs CPU)",
             model_gpu(data.x.to(dev), adj_gpu).cpu(), model_cpu(data.x, adj_cpu), torch.float32)
     for (name, p_gpu), p_cpu in zip(model_gpu.named_parameters(), model_cpu.parameters()):
+        if not p_cpu.requires_grad:  # GIN's frozen eps
+            continue
         compare(f"phase3 small-graph {label} grad {name}", p_gpu.grad.cpu(), p_cpu.grad, torch.float32)
-    log(f"phase3 small-graph {label} logits and grads: card matches CPU")
+    buffers = dict(model_cpu.named_buffers())
+    for name, b_gpu in model_gpu.named_buffers():
+        compare(f"phase3 small-graph {label} buffer {name}", b_gpu.cpu(), buffers[name], torch.float32)
+    log(f"phase3 small-graph {label} logits, grads and {len(buffers)} buffers: card matches CPU")
 
 
 def kipf_band(dev, reorder: str = "auto") -> None:
@@ -641,6 +774,23 @@ def phase3(dev) -> None:
     if blocked_matvec.launches - before != 9:  # 3 layers: forward, dx, the checked forward
         raise AssertionError(f"phase3: blocked_matvec launched {blocked_matvec.launches - before} times, not 9")
 
+    F = data.num_features
+    before = csr_spmm.launches
+    card_vs_cpu("EncoderGCN", lambda gen: EncoderGCN(F, 4, num_layers=2, generator=gen), data, adj_cpu, dev)
+    if csr_spmm.launches - before != 6:  # 2 convs: forward, dx, the checked forward
+        raise AssertionError(f"phase3: EncoderGCN launched K1 {csr_spmm.launches - before} times, not 6")
+    for aggr, want in (("mean", 8), ("max", 0)):  # 3 layers: 3 forward, 2 dx, 3 in the checked forward
+        before = csr_spmm.launches
+        card_vs_cpu(f"GraphSAGE {aggr}",
+                    lambda gen: GraphSAGE(F, 32, 4, num_layers=3, aggr=aggr, dropout=0.0, generator=gen),
+                    data, adj_cpu, dev)
+        if csr_spmm.launches - before != want:
+            raise AssertionError(f"phase3: GraphSAGE {aggr} launched K1 {csr_spmm.launches - before} times, not {want}")
+    before = csr_spmm.launches
+    card_vs_cpu("GIN", lambda gen: GIN(F, 32, 4, num_layers=3, generator=gen), data, adj_cpu, dev)
+    if csr_spmm.launches - before != 8:
+        raise AssertionError(f"phase3: GIN launched K1 {csr_spmm.launches - before} times, not 8")
+
     kipf_band(dev)
     kipf_band(dev, reorder="cluster")
 
@@ -657,7 +807,11 @@ def phase3(dev) -> None:
     if not 0.773 <= acc <= 0.873:
         raise AssertionError(f"phase3: cora_like GAT test accuracy {acc} outside [0.773, 0.873]")
 
-    for flags in (["--model.name", "gcn"], ["--model.name", "gat"], ["--train.reorder", "cluster"]):
+    for flags in (
+        ["--model.name", "gcn"], ["--model.name", "gat"], ["--train.reorder", "cluster"],
+        ["--model.name", "encoder_gcn"], ["--model.name", "sage"], ["--model.name", "gin"],
+        ["--optim.name", "sgd", "--optim.grad_clip", "1.0"],
+    ):
         rc = cli.main(["--dataset", "sbm", "--device", "cuda", *flags, "--train.epochs", "100"])
         log(f"phase3 cli.main {' '.join(flags)} returned {rc}")
         if rc != 0:
@@ -679,6 +833,7 @@ def main() -> int:
     by_graph = {"K1": {}, "K3": {}}
     phase1(adj, dev, checks, by_graph)
     phase1_gat(adj, dev, checks, by_graph)
+    phase1_unweighted(adj, dev, checks)
     del adj
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -689,7 +844,10 @@ def main() -> int:
     log_by_graph("K1 F=256 fwd", by_graph["K1"])
     log_by_graph(f"K3 (H,F)={GAT_HEADS[0]} fwd", by_graph["K3"])
     data = arxiv_scale_data(edges)
-    runs = {"gcn": phase2(data, dev), "gat": phase2_gat(data, dev)}
+    runs = {
+        "gcn": phase2(data, dev), "gat": phase2_gat(data, dev), "encoder_gcn": phase2_encoder(data, dev),
+        "sage": phase2_sage(data, dev), "gin": phase2_gin(data, dev),
+    }
     del data
     cluster_runs = phase2_cluster(arxiv_scale_data(clustered), dev)
     runs.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})

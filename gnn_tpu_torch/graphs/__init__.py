@@ -3,7 +3,7 @@ cluster-blocked layout."""
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
 from gnn_tpu_torch.graphs.blocked import BlockedLayout, cluster_order
-from gnn_tpu_torch.graphs.data import Data
+from gnn_tpu_torch.graphs.data import Batch, Data
 from gnn_tpu_torch.graphs.datasets import load_dataset
 from gnn_tpu_torch.graphs.generate import (
     clustered_power_law,
@@ -14,6 +14,7 @@ from gnn_tpu_torch.graphs.generate import (
 )
 from gnn_tpu_torch.graphs.transforms import (
     add_remaining_self_loops,
+    add_self_loops,
     coalesce,
     degree,
     gcn_norm,
@@ -27,12 +28,14 @@ __all__ = [
     "BlockedLayout",
     "cluster_order",
     "Data",
+    "Batch",
     "load_dataset",
     "clustered_power_law",
     "cora_like",
     "karate_club",
     "power_law",
     "stochastic_block_model",
+    "add_self_loops",
     "add_remaining_self_loops",
     "coalesce",
     "degree",

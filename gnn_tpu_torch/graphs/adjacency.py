@@ -86,6 +86,19 @@ class Adjacency:
             t_blocked=refresh(self.t_blocked),
         )
 
+    def unweighted(self) -> "Adjacency":
+        """``with_weight(None)``, made once per adjacency and kept on it: a
+        layer that sums plain neighbours (GIN) asks for it every forward,
+        and re-baking the blocked layouts' constants costs a pass over every
+        dense block."""
+        if self.weight is None:
+            return self
+        cached = self.__dict__.get("_unweighted")
+        if cached is None:
+            cached = self.with_weight(None)
+            object.__setattr__(self, "_unweighted", cached)
+        return cached
+
     def transpose(self) -> "Adjacency":
         """A^T as an Adjacency (edges re-sorted by the old src). The blocked
         layouts swap, and their canonical edge ids map through the inverse
@@ -164,7 +177,11 @@ def build_adjacency(
 ) -> Adjacency:
     """Prepare an :class:`Adjacency` (on the CPU) from a COO edge list [2, E].
 
-    ``reorder`` of ``False`` or ``"auto"`` keeps the node ids. ``"cluster"``
+    ``reorder`` of ``False`` or ``"auto"`` keeps the node ids (``perm`` is
+    None): the JAX package's ``"auto"`` relabels the nodes by degree bucket
+    where its sorted layout pays, which the port does not do until that
+    layout is ported (ROADMAP Queue 1 item 9); results agree either way,
+    since the models are permutation-equivariant. ``"cluster"``
     relabels them into community-packed windows of ``block_rows`` nodes and
     builds the blocked layouts (``block_dtype`` for the dense blocks, e.g.
     ``torch.bfloat16``; ``rem_backend`` as in the JAX package, all values

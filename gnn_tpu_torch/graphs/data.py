@@ -1,18 +1,20 @@
 """Graph data container.
 
 Port of ``gnn_tpu/graphs/data.py::Data``: node features ``x`` [N, F], COO
-``edge_index`` [2, E], optional ``edge_attr``, labels ``y`` and the
+``edge_index`` [2, E], optional ``edge_attr``, labels ``y`` (integer labels
+as int64, float targets in their own dtype, any trailing shape) and the
 train/val/test masks, held as torch tensors. ``to(device)`` moves them;
 ``to_adjacency`` runs the one-time host prep (exact ``gcn_norm`` and the CSR
 build) and returns an :class:`~gnn_tpu_torch.graphs.adjacency.Adjacency` on
 the CPU; ``permute_nodes`` moves the node arrays into a relabelled order.
+:class:`Batch` merges several graphs into one block-diagonal graph.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,7 +22,7 @@ import torch
 from gnn_tpu_torch.graphs import transforms
 from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
 
-__all__ = ["Data"]
+__all__ = ["Data", "Batch"]
 
 
 def _tensor(a, dtype=None) -> Optional[torch.Tensor]:
@@ -35,7 +37,7 @@ class Data:
     x: Optional[torch.Tensor]  # [N, F] node features
     edge_index: torch.Tensor  # [2, E] int64 COO
     edge_attr: Optional[torch.Tensor]  # [E] or [E, D]
-    y: Optional[torch.Tensor]  # [N] int64 labels
+    y: Optional[torch.Tensor]  # [N] or [N, ...] labels: int64, or a float dtype
     train_mask: Optional[torch.Tensor]  # [N] bool
     val_mask: Optional[torch.Tensor]
     test_mask: Optional[torch.Tensor]
@@ -95,7 +97,9 @@ class Data:
         self.x = _tensor(x)
         self.edge_index = edge_index.to(torch.int64)
         self.edge_attr = _tensor(edge_attr)
-        self.y = _tensor(y, torch.int64)
+        self.y = _tensor(y)
+        if self.y is not None and not self.y.dtype.is_floating_point:
+            self.y = self.y.to(torch.int64)
         self.train_mask = _tensor(train_mask, torch.bool)
         self.val_mask = _tensor(val_mask, torch.bool)
         self.test_mask = _tensor(test_mask, torch.bool)
@@ -162,3 +166,37 @@ class Data:
                 setattr(out, name, v.index_select(0, perm.to(v.device)))
         out.edge_index = old2new.to(self.edge_index.device)[self.edge_index]
         return out
+
+
+@dataclasses.dataclass(init=False)
+class Batch(Data):
+    """Block-diagonal merge of several graphs: node ids are offset graph by
+    graph, and ``graph_id`` says which graph each node came from."""
+
+    graph_id: torch.Tensor  # [N_total] int32, ascending
+    num_graphs: int
+
+    def __init__(self, data_list: Sequence[Data]):
+        if not data_list:
+            raise ValueError("Batch requires at least one graph")
+        xs, eis, eas, ys, gids = [], [], [], [], []
+        offset = 0
+        for i, d in enumerate(data_list):
+            if d.x is not None:
+                xs.append(d.x)
+            eis.append(d.edge_index + offset)
+            if d.edge_attr is not None:
+                eas.append(d.edge_attr)
+            if d.y is not None:
+                ys.append(torch.atleast_1d(d.y))
+            gids.append(torch.full((d.num_nodes,), i, dtype=torch.int32))
+            offset += d.num_nodes
+        super().__init__(
+            x=torch.cat(xs) if xs else None,
+            edge_index=torch.cat(eis, dim=1),
+            edge_attr=torch.cat(eas) if eas else None,
+            y=torch.cat(ys) if ys else None,
+            num_nodes=offset,
+        )
+        self.graph_id = torch.cat(gids)
+        self.num_graphs = len(data_list)

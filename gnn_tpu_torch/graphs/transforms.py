@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 __all__ = [
+    "add_self_loops",
     "add_remaining_self_loops",
     "remove_self_loops",
     "coalesce",
@@ -35,6 +36,23 @@ def _num_nodes(ei: np.ndarray, num_nodes: Optional[int]) -> int:
     if num_nodes is not None:
         return num_nodes
     return int(ei.max()) + 1 if ei.size else 0
+
+
+def add_self_loops(
+    edge_index,
+    edge_weight=None,
+    fill_value: float = 1.0,
+    num_nodes: Optional[int] = None,
+) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Append (i, i) for every node, whether it has a self loop or not."""
+    ei = _as_np(edge_index)
+    num_nodes = _num_nodes(ei, num_nodes)
+    loops = np.arange(num_nodes, dtype=ei.dtype)
+    out = np.concatenate([ei, np.stack([loops, loops])], axis=1)
+    if edge_weight is None:
+        return out, None
+    w = np.asarray(edge_weight)
+    return out, np.concatenate([w, np.full(num_nodes, fill_value, w.dtype)])
 
 
 def add_remaining_self_loops(

@@ -2,6 +2,8 @@
 
 from gnn_tpu_torch.mp.gat import GATConv
 from gnn_tpu_torch.mp.gcn import GCNConv
+from gnn_tpu_torch.mp.gin import GINConv
 from gnn_tpu_torch.mp.message_passing import MessagePassing
+from gnn_tpu_torch.mp.sage import SAGEConv
 
-__all__ = ["GATConv", "GCNConv", "MessagePassing"]
+__all__ = ["GATConv", "GCNConv", "GINConv", "MessagePassing", "SAGEConv"]

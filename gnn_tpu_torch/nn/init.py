@@ -12,7 +12,7 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["kaiming_uniform", "glorot_uniform", "uniform"]
+__all__ = ["kaiming_uniform", "glorot_uniform", "uniform", "normal", "zeros", "ones"]
 
 
 def uniform(
@@ -53,3 +53,23 @@ def glorot_uniform(
     fan_in = shape[-2] if len(shape) >= 2 else shape[0]
     bound = math.sqrt(6.0 / (fan_in + shape[-1]))
     return uniform(shape, minval=-bound, maxval=bound, generator=generator, dtype=dtype)
+
+
+def normal(
+    shape: Sequence[int],
+    *,
+    stddev: float = 1.0,
+    generator: Optional[torch.Generator] = None,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    return stddev * torch.randn(tuple(shape), generator=generator, dtype=dtype)
+
+
+def zeros(shape: Sequence[int], *, generator: Optional[torch.Generator] = None, dtype=torch.float32):
+    del generator
+    return torch.zeros(tuple(shape), dtype=dtype)
+
+
+def ones(shape: Sequence[int], *, generator: Optional[torch.Generator] = None, dtype=torch.float32):
+    del generator
+    return torch.ones(tuple(shape), dtype=dtype)

@@ -1,4 +1,4 @@
-"""Dense layer.
+"""Dense layer and Identity.
 
 Port of ``gnn_tpu/nn/linear.py::Linear``: weight [out, in] (the JAX
 package's layout, so weights transfer without a transpose), Kaiming-uniform
@@ -14,7 +14,7 @@ from torch import nn
 
 from gnn_tpu_torch.nn import init as init_lib
 
-__all__ = ["Linear"]
+__all__ = ["Linear", "Identity"]
 
 
 class Linear(nn.Module):
@@ -49,3 +49,8 @@ class Linear(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
+
+
+class Identity(nn.Module):
+    def forward(self, x, *args, **kwargs):
+        return x

@@ -1,7 +1,7 @@
 """Losses and metrics with optional boolean masks.
 
-Port of ``gnn_tpu/nn/losses.py::cross_entropy`` and ``accuracy``: both reduce
-over masked elements only, with the masked mean
+Port of ``gnn_tpu/nn/losses.py``: every loss and ``accuracy`` reduce over
+masked elements only, with the masked mean
 ``sum(v * mask) / max(sum(mask), 1)`` of ``_masked_mean``.
 """
 
@@ -11,7 +11,14 @@ from typing import Optional
 
 import torch
 
-__all__ = ["cross_entropy", "accuracy"]
+__all__ = [
+    "cross_entropy",
+    "nll_loss",
+    "binary_cross_entropy_with_logits",
+    "mse_loss",
+    "l1_loss",
+    "accuracy",
+]
 
 
 def _masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -34,6 +41,30 @@ def cross_entropy(
     if label_smoothing > 0.0:
         picked = (1.0 - label_smoothing) * picked + label_smoothing * log_probs.mean(-1)
     return _masked_mean(-picked, mask)
+
+
+def nll_loss(
+    log_probs: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    picked = log_probs.gather(-1, targets.long()[:, None])[:, 0]
+    return _masked_mean(-picked, mask)
+
+
+def binary_cross_entropy_with_logits(
+    logits: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """max(x, 0) - x * t + log(1 + e^-|x|), in float32."""
+    logits, targets = logits.float(), targets.float()
+    losses = logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    return _masked_mean(losses, mask)
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _masked_mean(torch.square(pred - target), mask)
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _masked_mean(torch.abs(pred - target), mask)
 
 
 def accuracy(

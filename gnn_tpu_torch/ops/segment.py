@@ -7,7 +7,9 @@ are plain torch reductions over explicit segment ids (what
 package has no kernel for it either. :func:`segment_sum_edges` reduces
 per-edge values in an adjacency's dst-sorted order to per-destination sums
 through kernel K2, with the backward a gather by destination (as at
-``gnn_tpu/ops/segment.py:204-206``).
+``gnn_tpu/ops/segment.py:204-206``). ``indices_are_sorted=``, ``backend=`` and
+``interpret=`` steer the JAX package's lowering only; they are accepted and
+ignored here, so that its callers' code carries over.
 """
 
 from __future__ import annotations
@@ -31,12 +33,16 @@ def _expand(ids: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     return ids.long().view((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
 
 
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_sum(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *, indices_are_sorted: bool = False
+) -> torch.Tensor:
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add(0, segment_ids.long(), data)
 
 
-def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_mean(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *, indices_are_sorted: bool = False
+) -> torch.Tensor:
     totals = segment_sum(data, segment_ids, num_segments)
     counts = segment_sum(
         torch.ones(segment_ids.shape[0], dtype=data.dtype, device=data.device),
@@ -47,21 +53,30 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: in
 
 
 def _segment_extreme(data, segment_ids, num_segments, reduce: str, fill: float):
+    if not data.dtype.is_floating_point:
+        info = torch.iinfo(data.dtype)
+        fill = info.min if fill < 0 else info.max
     out = data.new_full((num_segments,) + tuple(data.shape[1:]), fill)
     return out.scatter_reduce(0, _expand(segment_ids, data), data, reduce=reduce)
 
 
-def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_max(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *, indices_are_sorted: bool = False
+) -> torch.Tensor:
     """Empty segments come out -inf, as in JAX."""
     return _segment_extreme(data, segment_ids, num_segments, "amax", float("-inf"))
 
 
-def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_min(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *, indices_are_sorted: bool = False
+) -> torch.Tensor:
     """Empty segments come out +inf, as in JAX."""
     return _segment_extreme(data, segment_ids, num_segments, "amin", float("inf"))
 
 
-def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_softmax(
+    logits: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *, indices_are_sorted: bool = False
+) -> torch.Tensor:
     """Softmax within each segment (a node's in-edges), shifted by the
     per-segment max (held constant in the backward, as ``stop_gradient``)."""
     maxes = segment_max(logits.detach(), segment_ids, num_segments)
@@ -78,6 +93,7 @@ def segment_normalize(
     num_segments: int,
     *,
     p: float = 1.0,
+    indices_are_sorted: bool = False,
     eps: float = 1e-12,
 ) -> torch.Tensor:
     """Scale entries so each segment's Lp mass is 1."""
@@ -97,7 +113,9 @@ class _SegmentSumEdges(torch.autograd.Function):
         return g.index_select(0, dst.long()), None, None
 
 
-def segment_sum_edges(values: torch.Tensor, adj) -> torch.Tensor:
+def segment_sum_edges(
+    values: torch.Tensor, adj, *, backend: str = "auto", interpret: bool = False
+) -> torch.Tensor:
     """Per-edge values [E, ...] (dst-sorted order) -> per-destination sums
     [N_dst, ...] through K2; differentiable in ``values``."""
     shape = values.shape

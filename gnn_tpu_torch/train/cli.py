@@ -5,8 +5,11 @@ Port of ``gnn_tpu/train/cli.py`` with a ``--device`` flag (default ``cuda``):
     python -m gnn_tpu_torch.train.cli --dataset sbm --device cuda \
         --train.epochs 100 --optim.lr 0.01
 
-Any Config field is overridable with a dotted flag. --config loads a JSON
-config file first; dotted flags override it.
+``--model.name`` is one of gcn, gat, encoder_gcn, sage (with ``--model.aggr
+mean|sum|max``) and gin; ``--optim.name`` one of adam, adamw and sgd (with
+``--optim.momentum``); ``--optim.grad_clip C`` clips the gradients' global
+norm to C before each step. Any Config field is overridable with a dotted
+flag. --config loads a JSON config file first; dotted flags override it.
 """
 
 from __future__ import annotations

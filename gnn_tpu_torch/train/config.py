@@ -3,7 +3,8 @@
 A copy of ``gnn_tpu/train/config.py`` (the JAX module cannot be imported
 without jax): one dataclass tree, JSON-serializable, with ``section.key=value``
 overrides. The fields are the same, so a config file serves both packages;
-the port's ``fit`` raises on the branches it does not run yet.
+the port's ``fit`` raises on the branches it does not run yet (sampled
+minibatches, partitions, host features, checkpoints, ``reorder='true'``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ __all__ = ["ModelConfig", "OptimConfig", "TrainConfig", "DistConfig", "Config"]
 
 @dataclass
 class ModelConfig:
-    name: str = "gcn"  # gcn | gat (ported) | sage | encoder_gcn | gin
+    name: str = "gcn"  # gcn | gat | sage | encoder_gcn | gin
     hidden: int = 64
     num_layers: int = 2
     dropout: float = 0.5
@@ -28,7 +29,7 @@ class ModelConfig:
 
 @dataclass
 class OptimConfig:
-    name: str = "adam"  # adam | adamw (ported) | sgd
+    name: str = "adam"  # adam | adamw | sgd
     lr: float = 0.01
     weight_decay: float = 0.0
     momentum: float = 0.9  # sgd only
@@ -42,8 +43,10 @@ class TrainConfig:
     batch_size: int = 0  # 0 = full graph (the only ported mode)
     fanouts: List[int] = field(default_factory=lambda: [10, 5])
     eval_every: int = 10
-    # "auto" and "false" keep node ids (the port has no relabelled layout);
-    # "true" and "cluster" are not ported yet.
+    # "cluster" relabels the nodes into the cluster-blocked layout. "auto"
+    # and "false" keep the node ids: the JAX package's "auto" relabels by
+    # degree bucket where that pays, which the port does not do yet, and
+    # "true" (that relabelling, forced) raises (ROADMAP Queue 1 item 9).
     reorder: str = "auto"
     checkpoint_dir: str = ""
     checkpoint_every: int = 0

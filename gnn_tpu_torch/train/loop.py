@@ -4,27 +4,32 @@ Port of the single-device full-graph branch of ``gnn_tpu/train/loop.py::fit``:
 one-time prep (exact ``gcn_norm`` and the CSR adjacency, with the
 cluster-blocked layouts and relabelled nodes under
 ``train.reorder='cluster'``, moved to the device), then per epoch the model
-(GCN or GAT; GAT ignores the edge weights) -> masked cross entropy ->
-backward -> Adam, with evaluation, metrics and early stopping on validation
-accuracy. Sampled minibatches, multi-device partitions, host-resident
-features, checkpoints, the degree-bucket relabelling
-(``train.reorder='true'``) and the SAGE, GIN and EncoderGCN models are not
-ported yet: their settings raise ``NotImplementedError`` (ROADMAP Queue 1).
+-> masked cross entropy -> backward -> (gradient clipping ->) Adam, AdamW or
+SGD, with evaluation, metrics and early stopping on validation accuracy. It
+trains every ``model.name`` of the config: ``gcn``, ``gat`` (ignores the edge
+weights), ``encoder_gcn`` (BatchNorm buffers: updated by the train step, read
+by the evaluation, returned in the middle slot), ``sage`` (scales its
+messages by the ``gcn_norm`` weights, as the JAX ``fit`` hands them to every
+model) and ``gin`` (drops them). Sampled minibatches, multi-device
+partitions, host-resident features, checkpoints and the degree-bucket
+relabelling (``train.reorder='true'``) are not ported yet: their settings
+raise ``NotImplementedError`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency
 from gnn_tpu_torch.graphs.data import Data
-from gnn_tpu_torch.models import GAT, GCN
+from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn.losses import accuracy, cross_entropy
-from gnn_tpu_torch.optim import Adam, AdamW
+from gnn_tpu_torch.nn.state import buffer_state
+from gnn_tpu_torch.optim import SGD, Adam, AdamW, clip_by_global_norm
 from gnn_tpu_torch.train.config import Config
 from gnn_tpu_torch.train.metrics import MetricLogger, Throughput
 
@@ -47,23 +52,30 @@ def build_model(
             in_features, m.hidden, num_classes,
             num_layers=m.num_layers, heads=m.heads, dropout=m.dropout, generator=generator,
         )
-    if m.name in ("sage", "gin", "encoder_gcn"):
-        raise NotImplementedError(
-            f"model '{m.name}' is not ported yet (ROADMAP Queue 1 items 4-5 and 11)"
+    if m.name == "sage":
+        return GraphSAGE(
+            in_features, m.hidden, num_classes,
+            num_layers=m.num_layers, aggr=m.aggr, dropout=m.dropout, generator=generator,
+        )
+    if m.name == "gin":
+        return GIN(in_features, m.hidden, num_classes, num_layers=m.num_layers, generator=generator)
+    if m.name == "encoder_gcn":
+        return EncoderGCN(
+            in_features, num_classes, num_layers=m.num_layers, dropout=m.dropout, generator=generator
         )
     raise ValueError(f"unknown model '{m.name}'")
 
 
 def build_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
+    """The optimizer of ``cfg.optim.name``. ``optim.grad_clip`` is not part
+    of it: ``fit`` clips the gradients before each step."""
     o = cfg.optim
-    if o.grad_clip > 0:
-        raise NotImplementedError("optim.grad_clip is not ported yet (ROADMAP Queue 1 item 6)")
     if o.name == "adam":
         return Adam(params, lr=o.lr, weight_decay=o.weight_decay)
     if o.name == "adamw":
         return AdamW(params, lr=o.lr, weight_decay=o.weight_decay)
     if o.name == "sgd":
-        raise NotImplementedError("optimizer 'sgd' is not ported yet (ROADMAP Queue 1 item 6)")
+        return SGD(params, lr=o.lr, momentum=o.momentum, weight_decay=o.weight_decay)
     raise ValueError(f"unknown optimizer '{o.name}'")
 
 
@@ -90,7 +102,8 @@ def _check_supported(cfg: Config) -> None:
 
 @torch.no_grad()
 def evaluate(model: nn.Module, data: Data, adj: Adjacency) -> dict:
-    """Accuracy per split, in inference mode (dropout off)."""
+    """Accuracy per split, in inference mode (dropout off, BatchNorm on its
+    running statistics)."""
     was_training = model.training
     model.eval()
     logits = model(data.x, adj)
@@ -110,10 +123,13 @@ def fit(
     model: Optional[nn.Module] = None,
     device="cuda",
     verbose: bool = True,
-) -> Tuple[nn.Module, None, list]:
-    """Train per config on ``device``. Returns (trained model, None, history);
-    the middle slot is the JAX package's buffer state, which GCN and GAT have
-    none of.
+) -> Tuple[nn.Module, Optional[Dict[str, torch.Tensor]], list]:
+    """Train per config on ``device``. Returns (trained model, buffer state,
+    history); the buffer state is ``buffer_state(model)`` for a model with
+    buffers (EncoderGCN's running statistics) and None otherwise.
+
+    Early stopping restores the best epoch's *parameters* only, as the JAX
+    ``fit`` does: the buffers stay those of the last epoch run.
 
     Each history entry holds the split accuracies, ``loss`` (of the epoch's
     step), ``edges_per_s`` since the start, and ``step_ms``: the wall time
@@ -139,7 +155,8 @@ def fit(
         data = data.permute_nodes(adj.perm)
     adj = adj.to(device)
     data = data.to(device)
-    opt = build_optimizer(cfg, model.parameters())
+    params = list(model.parameters())
+    opt = build_optimizer(cfg, params)
     dropout_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
     logger = MetricLogger(cfg.train.log_file, echo=verbose)
 
@@ -152,6 +169,8 @@ def fit(
         opt.zero_grad(set_to_none=True)
         loss = cross_entropy(model(data.x, adj, generator=dropout_gen), data.y, data.train_mask)
         loss.backward()
+        if cfg.optim.grad_clip > 0:
+            clip_by_global_norm(params, cfg.optim.grad_clip)
         opt.step()
         thr.step()
         if (epoch + 1) % cfg.train.eval_every == 0 or epoch == cfg.train.epochs - 1:
@@ -166,13 +185,15 @@ def fit(
             if cfg.train.patience and val is not None:
                 if val > best_val:
                     best_val, patience_left = val, cfg.train.patience
-                    best_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                    best_state = {k: p.detach().clone() for k, p in model.named_parameters()}
                 else:
                     patience_left -= 1
                     if patience_left <= 0:
                         break
 
     if best_state is not None:
-        model.load_state_dict(best_state)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(best_state[name])
     logger.close()
-    return model, None, history
+    return model, buffer_state(model) or None, history

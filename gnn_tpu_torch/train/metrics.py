@@ -1,7 +1,7 @@
 """Structured per-step metrics.
 
 Port of ``gnn_tpu/train/metrics.py``: a JSONL metrics logger and an edges/s
-counter. CUDA launches are asynchronous, so a host clock measures the device
+and steps/s counter. CUDA launches are asynchronous, so a host clock measures the device
 only after a synchronisation: read :class:`Throughput` after one (in ``fit``,
 ``float(loss)`` is that sync).
 """
@@ -42,7 +42,7 @@ class MetricLogger:
 
 
 class Throughput:
-    """edges/s since ``start``; read after a device sync."""
+    """edges/s and steps/s since ``start``; read after a device sync."""
 
     def __init__(self, edges_per_step: int):
         self.edges_per_step = edges_per_step
@@ -63,3 +63,9 @@ class Throughput:
         if not self.steps or self.t0 is None:
             return 0.0
         return self.steps * self.edges_per_step / max(time.perf_counter() - self.t0, 1e-9)
+
+    @property
+    def steps_per_s(self) -> float:
+        if not self.steps or self.t0 is None:
+            return 0.0
+        return self.steps / max(time.perf_counter() - self.t0, 1e-9)

@@ -348,3 +348,68 @@ def test_blocked_spmm_backward_on_card_matches_cpu(cuda_device):
     for out, grad in outs[1:]:
         torch.testing.assert_close(out, outs[0][0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(grad, outs[0][1], rtol=1e-4, atol=1e-4)
+
+
+def _conv_on_card_matches_cpu(make, cuda_device, n=600):
+    """Output and gradients (parameters and input) of one conv on the card
+    against the CPU, rtol=atol=1e-4; returns K1's launches on the card."""
+    torch.manual_seed(0)
+    ei, _ = tg.to_undirected(tg.power_law(n, 6000, seed=1), num_nodes=n)
+    ei, w = tg.gcn_norm(ei, num_nodes=n)
+    adj_cpu = tg.build_adjacency(ei, w, num_nodes=n)
+    conv_cpu = make(torch.Generator().manual_seed(0))
+    conv_gpu = make(None).to(cuda_device)
+    conv_gpu.load_state_dict(conv_cpu.state_dict())
+    x = torch.randn(n, 24)
+    ct = torch.randn(n, 16)
+    xs = []
+    before = csr_spmm.launches
+    for conv, adj, dev in ((conv_cpu, adj_cpu, "cpu"), (conv_gpu, adj_cpu.to(cuda_device), cuda_device)):
+        xd = x.clone().to(dev).requires_grad_()  # a leaf on either device
+        xs.append(xd)
+        (conv(xd, adj) * ct.to(dev)).sum().backward()
+    launches = csr_spmm.launches - before
+    tol = dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(xs[1].grad.cpu(), xs[0].grad, **tol)
+    for (name, p_gpu), p_cpu in zip(conv_gpu.named_parameters(), conv_cpu.parameters()):
+        if p_cpu.grad is not None:
+            torch.testing.assert_close(p_gpu.grad.cpu(), p_cpu.grad, msg=name, **tol)
+    out_gpu = conv_gpu(x.to(cuda_device), adj_cpu.to(cuda_device))
+    torch.testing.assert_close(out_gpu.cpu(), conv_cpu(x, adj_cpu), **tol)
+    return launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggr,launches", [("mean", 2), ("sum", 2), ("max", 0)])
+def test_sageconv_on_card_matches_cpu(cuda_device, aggr, launches):
+    """sum and mean aggregate through K1 (forward and dx; the CPU pass
+    launches nothing); max has no kernel."""
+    from gnn_tpu_torch.mp import SAGEConv
+
+    got = _conv_on_card_matches_cpu(lambda gen: SAGEConv(24, 16, aggr=aggr, generator=gen), cuda_device)
+    assert got == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train_eps", [False, True])
+def test_ginconv_on_card_matches_cpu(cuda_device, train_eps):
+    from gnn_tpu_torch.mp import GINConv
+
+    make = lambda gen: GINConv(24, [16, 16], eps=0.2, train_eps=train_eps, generator=gen)
+    assert _conv_on_card_matches_cpu(make, cuda_device) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_without_weights_at_f128_on_card(cuda_device, dtype):
+    """GIN's shape: a null weight pointer at F=128, forward and transpose,
+    against the plain version and bitwise against a second call."""
+    n = 3000
+    ei, _ = tg.to_undirected(tg.power_law(n, 40000, seed=0), num_nodes=n)
+    adj = tg.build_adjacency(ei, None, num_nodes=n).to(cuda_device)
+    assert adj.weight is None and adj.t_weight is None
+    x = torch.randn(n, 128, device=cuda_device).to(dtype)
+    before = csr_spmm.launches
+    _check_deterministic(csr_spmm, csr_spmm_plain, (adj.row_ptr, adj.src, None, x), dtype)
+    _check_deterministic(csr_spmm, csr_spmm_plain, (adj.t_row_ptr, adj.t_col, None, x), dtype)
+    assert csr_spmm.launches - before == 4

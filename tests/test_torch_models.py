@@ -110,11 +110,6 @@ def test_dropout_keeps_expected_fraction():
     assert d.eval()(x) is x
 
 
-def test_gcnconv_mid_block_not_ported():
-    with pytest.raises(NotImplementedError, match="EncoderGCN"):
-        GCNConv(4, 4, mid_block=True)
-
-
 @pytest.mark.parametrize("masked", [False, True])
 def test_cross_entropy_and_accuracy_match(rng, masked):
     from gnn_tpu.nn import accuracy as jax_accuracy

@@ -14,10 +14,12 @@ import torch
 from gnn_tpu import nn as jnn
 from gnn_tpu.graphs.datasets import load_dataset as jax_load_dataset
 from gnn_tpu.models import GCN as JaxGCN
+from gnn_tpu.models import GIN as JaxGIN
+from gnn_tpu.models import GraphSAGE as JaxGraphSAGE
 from gnn_tpu.train import Config as JaxConfig
 from gnn_tpu.train import fit as jax_fit
 from gnn_tpu_torch.graphs import cora_like, load_dataset
-from gnn_tpu_torch.models import GCN
+from gnn_tpu_torch.models import GCN, GIN, GraphSAGE
 from gnn_tpu_torch.nn import load_jax_state_dict
 from gnn_tpu_torch.train import Config, fit
 from gnn_tpu_torch.train.cli import main, parse_args
@@ -54,6 +56,71 @@ def test_fit_losses_match_jax(weight_decay):
         assert abs(thist[-1][split] - jhist[-1][split]) <= 0.01, split
 
 
+@pytest.mark.parametrize(
+    "name,overrides",
+    [
+        ("gcn", {"optim.name": "sgd", "optim.lr": 0.1, "optim.grad_clip": 0.5}),
+        ("gcn", {"optim.name": "sgd", "optim.lr": 0.1, "optim.momentum": 0.0, "optim.weight_decay": 5e-4}),
+        ("gcn", {"optim.name": "adamw", "optim.grad_clip": 0.5}),
+        ("sage", {}),
+        ("sage", {"model.aggr": "sum", "optim.name": "sgd", "optim.grad_clip": 1.0}),
+        ("sage", {"model.aggr": "max"}),
+        ("gin", {}),
+        ("gin", {"model.num_layers": 3, "optim.name": "sgd", "optim.lr": 0.01, "optim.grad_clip": 1.0}),
+    ],
+    ids=lambda v: v if isinstance(v, str) else ",".join(f"{k.split('.')[1]}={x}" for k, x in v.items()) or "adam",
+)
+def test_fit_losses_match_jax_by_model_and_optimizer(name, overrides):
+    """The 5-epoch loss curve at rtol=1e-4 for GraphSAGE and GIN, and for the
+    GCN under SGD and gradient clipping; dropout 0, weights carried over.
+    Both ``fit``s hand the gcn_norm weights to the model."""
+    cfg = _cfg(**{"model.name": name, **overrides})
+    m = cfg.model
+    jdata, tdata = jax_load_dataset("sbm"), load_dataset("sbm")
+    F, key = tdata.num_features, jax.random.PRNGKey(2)
+    if name == "gcn":
+        jmodel, tmodel = JaxGCN(F, 16, 4, key=key, dropout=0.0), GCN(F, 16, 4, dropout=0.0)
+    elif name == "sage":
+        jmodel = JaxGraphSAGE(F, 16, 4, key=key, aggr=m.aggr, dropout=0.0)
+        tmodel = GraphSAGE(F, 16, 4, aggr=m.aggr, dropout=0.0)
+    else:
+        jmodel = JaxGIN(F, 16, 4, key=key, num_layers=m.num_layers)
+        tmodel = GIN(F, 16, 4, num_layers=m.num_layers)
+    load_jax_state_dict(tmodel, {k: np.asarray(v) for k, v in jnn.state_dict(jmodel).items()})
+    _, _, jhist = jax_fit(JaxConfig.from_json(cfg.to_json()), jdata, model=jmodel, verbose=False)
+    _, state, thist = fit(cfg, tdata, model=tmodel, device="cpu", verbose=False)
+    assert state is None and len(thist) == len(jhist) == 5
+    np.testing.assert_allclose([h["loss"] for h in thist], [h["loss"] for h in jhist], rtol=1e-4)
+    assert thist[-1]["loss"] < thist[0]["loss"]
+    for split in ("train_acc", "val_acc", "test_acc"):
+        assert abs(thist[-1][split] - jhist[-1][split]) <= 0.01, split
+
+
+@pytest.mark.parametrize("name", ["gcn", "gat", "encoder_gcn", "sage", "gin"])
+@pytest.mark.parametrize("optimizer,clip", [("adam", 0.0), ("adamw", 1.0), ("sgd", 0.0), ("sgd", 1.0)])
+def test_fit_trains_every_model_with_every_optimizer(name, optimizer, clip):
+    """Built from the config alone (the port's own initial weights)."""
+    cfg = _cfg(**{"model.name": name, "model.dropout": 0.3, "optim.name": optimizer, "optim.grad_clip": clip,
+                  "train.epochs": 3, "model.heads": 2})
+    model, state, hist = fit(cfg, load_dataset("karate"), device="cpu", verbose=False)
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
+    assert (state is not None) == (name == "encoder_gcn")
+    assert model.training
+
+
+@pytest.mark.parametrize("name", ["encoder_gcn", "sage", "gin"])
+def test_fit_on_the_blocked_layout_matches_the_csr(name):
+    """``train.reorder='cluster'`` with the new models: the same losses as on
+    the CSR at rtol=1e-4 (the relabelling is exact; the blocked product sums
+    in another order). GIN drops the weights of the blocked layouts too."""
+    hists = []
+    for reorder in ("auto", "cluster"):
+        cfg = _cfg(**{"model.name": name, "train.reorder": reorder})
+        _, _, hist = fit(cfg, load_dataset("sbm"), device="cpu", verbose=False)
+        hists.append([h["loss"] for h in hist])
+    np.testing.assert_allclose(hists[1], hists[0], rtol=1e-4)
+
+
 def test_cora_like_kipf_accuracy_band():
     """The main-path done bar: the Kipf recipe of
     tests/test_models.py::test_cora_like_gcn_accuracy_band through the port."""
@@ -69,6 +136,23 @@ def test_cora_like_kipf_accuracy_band():
 def test_cli_main_runs_on_cpu(capsys):
     assert main(["--dataset", "sbm", "--device", "cpu", "--train.epochs", "20"]) == 0
     assert "final:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--model.name", "encoder_gcn"],
+        ["--model.name", "sage", "--model.aggr", "max"],
+        ["--model.name", "gin"],
+        ["--optim.name", "sgd", "--optim.grad_clip", "1.0"],
+    ],
+    ids=lambda f: "_".join(f[1::2]),
+)
+def test_cli_main_trains_the_other_models_and_optimizers(capsys, flags):
+    assert main(["--dataset", "sbm", "--device", "cpu", "--train.epochs", "30", "--optim.lr", "0.02", *flags]) == 0
+    out = capsys.readouterr().out
+    assert "final:" in out
+    assert float(out.split("test_acc=")[1].split()[0]) > 0.8
 
 
 def test_cli_parse_and_config_round_trip():
@@ -96,10 +180,10 @@ def test_fit_on_cuda_raises_without_a_card(monkeypatch):
         {"train.checkpoint_dir": "ckpt"},
         {"train.reorder": "true"},
         {"model.name": "gat", "train.batch_size": 64},
-        {"model.name": "sage"},
-        {"model.name": "encoder_gcn"},
-        {"optim.name": "sgd"},
-        {"optim.grad_clip": 1.0},
+        pytest.param({"model.name": "sage", "train.batch_size": 64}, id="sage,train.batch_size=64"),
+        pytest.param({"model.name": "gin", "train.batch_size": 64}, id="gin,train.batch_size=64"),
+        pytest.param({"model.name": "encoder_gcn", "dist.num_parts": 2}, id="encoder_gcn,dist.num_parts=2"),
+        pytest.param({"model.name": "sage", "dist.num_parts": 2}, id="sage,dist.num_parts=2"),
     ],
     ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))),
 )
@@ -115,3 +199,9 @@ def test_early_stopping_restores_best():
     best = max(h["val_acc"] for h in hist)
     assert all(np.isfinite(h["loss"]) and h["step_ms"] > 0 for h in hist)
     assert best >= hist[-1]["val_acc"]
+
+
+@pytest.mark.parametrize("field,value", [("model.name", "mlp"), ("optim.name", "lion")])
+def test_unknown_model_and_optimizer_raise(field, value):
+    with pytest.raises(ValueError, match="unknown"):
+        fit(_cfg(**{field: value}), load_dataset("karate"), device="cpu", verbose=False)

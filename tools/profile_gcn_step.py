@@ -1,17 +1,22 @@
-"""Where a GCN or GAT training step's time goes on one NVIDIA GPU.
+"""Where a training step's time goes on one NVIDIA GPU, for any of the models.
 
-    python3 tools/profile_gcn_step.py [--model gcn|gat] [--graph powerlaw|clustered]
+    python3 tools/profile_gcn_step.py [--model gcn|gat|encoder_gcn|sage|gin] [--graph powerlaw|clustered]
         [--reorder auto|cluster] [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
 
 Builds the arxiv-scale graph of ``chip_smoke.py`` (``--graph powerlaw``, the
 default, phases 2 and 2-gat; ``--graph clustered``, phase 2-cluster) and the
 model of phase 2 (``--model gcn``, the default: GCN 3 x 256, 40 classes,
 dropout 0.5, Adam lr 0.01) or phase 2-gat (``--model gat``: GAT 2 layers, 8
-heads x 32, 1 output head, dropout 0.5, Adam lr 0.005); ``--reorder
+heads x 32, 1 output head, dropout 0.5, Adam lr 0.005), 2-encoder
+(``--model encoder_gcn``: the flagship, pre-MLP 128 -> 256 -> 128, 2
+mid-block convs, post-MLP; Adam), 2-sage (``--model sage``: GraphSAGE 3 x
+256, mean; Adam) or 2-gin (``--model gin``: GIN 3 x 256; SGD with momentum
+and gradient clipping); ``--reorder
 cluster`` relabels the nodes and builds the cluster-blocked layout, as
 ``fit`` does under ``train.reorder='cluster'``. It runs ``fit``'s training
 step on it:
-the model with dropout -> masked cross entropy, backward, Adam. After
+the model with dropout -> masked cross entropy, backward, (clipping,) the
+optimizer. After
 ``--warmup`` steps it times ``--timed`` untraced steps with CUDA events,
 then traces ``--steps`` steps with ``torch.profiler``. It prints:
 
@@ -21,6 +26,9 @@ then traces ``--steps`` steps with ``torch.profiler``. It prints:
   twice;
 - the idle share, 1 - busy / traced window;
 - device ms, launches and share of busy time per kernel name;
+- the busy time split into K1, K2, K3 (by the Op in their names), Linear
+  (the library's matrix products, by ``gemm`` and its kin in theirs) and
+  the rest;
 - with ``--reorder cluster``, the busy time split into the block product
   (the kernels inside ``blocked_matvec``'s ``blocked_matvec.diag`` range:
   pad, bmm, cast), the kernels and the rest;
@@ -51,14 +59,22 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (  # noqa: E402
-    N_NODES, arxiv_gat_config, arxiv_gcn_config, arxiv_scale_data, arxiv_scale_edges, clustered_edges,
-    log, nvidia_smi,
+    N_NODES, arxiv_encoder_config, arxiv_gat_config, arxiv_gcn_config, arxiv_gin_config, arxiv_sage_config,
+    arxiv_scale_data, arxiv_scale_edges, clustered_edges, log, nvidia_smi,
 )
 from gnn_tpu_torch.nn import cross_entropy  # noqa: E402
 from gnn_tpu_torch.ops.cuda import bounds  # noqa: E402
+from gnn_tpu_torch.optim import clip_by_global_norm  # noqa: E402
 from gnn_tpu_torch.train.loop import build_model, build_optimizer  # noqa: E402
 
 DEVICE_TYPES = (DeviceType.CUDA,)
+CONFIGS = {
+    "gcn": arxiv_gcn_config, "gat": arxiv_gat_config, "encoder_gcn": arxiv_encoder_config,
+    "sage": arxiv_sage_config, "gin": arxiv_gin_config,
+}
+# Substrings of the names of the library's matrix-product kernels (nn.Linear
+# forward, dW and dX; under --reorder cluster the block product too).
+GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "gemv")
 
 
 def union_us(intervals) -> float:
@@ -107,6 +123,15 @@ def split_by_range(prof_events, kernels, steps: int, range_name: str, inside) ->
     return dict(out)
 
 
+def layer_of(name: str) -> str:
+    """K1, K2 or K3 by the Op in a kernel's name, Linear for a matrix
+    product, else the rest."""
+    label = next((label for op, label in KERNEL_OPS if op in name), None)
+    if label is None and any(sub in name.lower() for sub in GEMM_NAMES):
+        label = "Linear (matrix products)"
+    return label or "rest"
+
+
 def sddmm_part(name: str) -> str:
     part = next((label for sub, label in SDDMM_PARTS if sub in name.lower()), "multiply")
     return f"SDDMM d ex: {part}"
@@ -126,7 +151,7 @@ def timed_ms(step, n: int) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("gcn", "gat"), default="gcn")
+    ap.add_argument("--model", choices=tuple(CONFIGS), default="gcn")
     ap.add_argument("--graph", choices=("powerlaw", "clustered"), default="powerlaw")
     ap.add_argument("--reorder", choices=("auto", "cluster"), default="auto")
     ap.add_argument("--warmup", type=int, default=5)
@@ -142,7 +167,7 @@ def main(argv=None) -> int:
     log(f"torch {torch.__version__}  cuda {torch.version.cuda}")
 
     data = arxiv_scale_data(arxiv_scale_edges() if args.graph == "powerlaw" else clustered_edges())
-    cfg = arxiv_gcn_config() if args.model == "gcn" else arxiv_gat_config()
+    cfg = CONFIGS[args.model]()
     model = build_model(
         cfg, data.num_features, int(data.y.max()) + 1,
         torch.Generator().manual_seed(cfg.train.seed),
@@ -153,7 +178,8 @@ def main(argv=None) -> int:
         data = data.permute_nodes(adj.perm)
     adj = adj.to(dev)
     data = data.to(dev)
-    opt = build_optimizer(cfg, model.parameters())
+    params = list(model.parameters())
+    opt = build_optimizer(cfg, params)
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed + 1)
     log(f"graph: {args.graph}, {N_NODES} nodes, {adj.num_edges} edges with self loops; model {args.model}; "
         f"reorder {args.reorder}")
@@ -162,6 +188,8 @@ def main(argv=None) -> int:
         opt.zero_grad(set_to_none=True)
         loss = cross_entropy(model(data.x, adj, generator=gen), data.y, data.train_mask)
         loss.backward()
+        if cfg.optim.grad_clip > 0:
+            clip_by_global_norm(params, cfg.optim.grad_clip)
         opt.step()
 
     for _ in range(args.warmup):
@@ -192,6 +220,13 @@ def main(argv=None) -> int:
     log(f"{'device ms/step':>14s} {'launches/step':>13s} {'share':>6s}  kernel")
     for name, (ms, count) in sorted(per_name.items(), key=lambda kv: -kv[1][0]):
         log(f"{ms:14.3f} {count / args.steps:13.1f} {ms / busy:6.1%}  {name[:100]}")
+    by_layer = defaultdict(lambda: [0.0, 0])
+    for e in device_events:
+        entry = by_layer[layer_of(e.name)]
+        entry[0] += (e.time_range.end - e.time_range.start) / 1e3 / args.steps
+        entry[1] += 1
+    for key, (ms, count) in sorted(by_layer.items(), key=lambda kv: -kv[1][0]):
+        log(f"layer split: {key}: {ms:.3f} ms/step in {count / args.steps:.1f} launches ({ms / busy:.1%} of busy)")
     splits = []
     if args.reorder == "cluster":
         splits.append(("blocked", "blocked_matvec.diag", lambda name: "block product (pad, bmm, cast)"))
