@@ -26,9 +26,20 @@ the recipe of bench.py's blocked workload) with ``reorder='cluster'`` twice,
 at 256-row float32 and 512-row bfloat16 windows, and holds
 ``blocked_matvec`` (the block product plus K1 over the remainder CSR)
 forward and transpose at F in {256, 40} against its plain version, the
-float32 one also against K1 over the whole relabelled CSR, with times of all
-three; two lines then set K1's F=256 time and K3's (8, 32) time on the two
-graphs beside their edge counts and longest rows. Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
+float32 one also against K1 and ``torch.sparse.mm`` over the whole relabelled
+CSR, with times of all; its ``bound_ms`` is that of the function (A @ x over
+every edge), and ``layout_cost_ms`` beside it is what the dense blocks ask
+for; two lines then set K1's F=256 time and K3's (8, 32) time on the two
+graphs beside their edge counts and longest rows. Phase 1-hop holds the
+kernels over the bipartite CSRs of neighbour-sampled hops (every row exactly
+``fanout`` edges long, ``col`` contiguous; the transpose with one edge a row
+behind a run of empty rows) of batch 1024, at every shape the sampled phases
+launch them at: K1 with a null weight forward on each hop of fanouts [15,
+10, 5] (F = 128, 256, 256) and of the host path's [10, 5] (F = 128, 256),
+transposed on all but the outermost; K3 forward and transposed, K2 and K1
+over ``col = t_perm`` on both hops of the GAT's [10, 5], at (8, 32) on the
+outer and (1, 40) on the inner.
+Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
 classes) for 5 epochs on the power-law graph through
 ``gnn_tpu_torch.train.fit``;
 phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
@@ -40,12 +51,24 @@ EncoderGCN (pre-MLP 128 -> 256 -> 128, two mid-block convs at 128, post-MLP
 to 40 classes; Adam), GraphSAGE (3 x 256, mean; Adam) and GIN (3 x 256; SGD
 with momentum and gradient clipping), all of whose aggregation is K1. Each
 checks its losses and that it
-launched its kernels as often as its layers ask. Phase 3 checks the kernel
+launched its kernels as often as its layers ask. Phases 2-sampled-sage and
+2-sampled-gat train on neighbour-sampled minibatches through the same
+``fit`` (``train.batch_size`` 1024; GraphSAGE 3 x 256 mean with fanouts [15,
+10, 5], the OGB neighbour-sampling baseline's recipe for ogbn-products, and
+the GAT with fanouts [10, 5]; 20 steps each, on features that carry the
+class, so the loss must fall), the sampler, features and hop adjacencies on
+the card; phase 2-host trains GraphSAGE 2 x 256 for 10 steps with
+``train.host_features`` on a ``Data(host_arrays=True)``: sampling and the
+feature gather on the host, one pinned slab a step to the card, the
+evaluation neighbour-sampled through the same loader. Phase 3 checks the kernel
 path against the CPU path on a small graph for GCN, GAT, the blocked GCN,
 EncoderGCN (with its BatchNorm buffers), GraphSAGE (mean and max) and GIN,
 trains the Kipf GCN (on the CSR and on the blocked layout) and the GAT
 recipes on ``cora_like`` into their accuracy bands, and runs the CLI for
-every model and for SGD with clipping.
+every model and for SGD with clipping; it also holds ``forward_sampled``
+on the card to the CPU for one node list, runs the CLI on sampled
+minibatches, and checks that a run stopped at a checkpoint and resumed
+equals an uninterrupted one.
 
 The next-to-last line of standard output is a JSON object with each
 kernel's launches (in all, and per training step of each path, the
@@ -61,6 +84,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -70,6 +94,7 @@ from gnn_tpu_torch import native
 from gnn_tpu_torch.graphs import Data, build_adjacency, gcn_norm, power_law, to_undirected
 from gnn_tpu_torch.graphs.blocked import _diag_product, blocked_matvec, blocked_matvec_plain
 from gnn_tpu_torch.graphs.generate import clustered_power_law, cora_like, stochastic_block_model
+from gnn_tpu_torch.graphs.sampling import NeighborSampler, hop_adjacencies
 from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
@@ -90,6 +115,10 @@ UNWEIGHTED_WIDTHS = (128, 256)  # K1 with a null weight: GIN's input and hidden 
 # configuration of bench.py's blocked workload
 BLOCKED_CONFIGS = ((256, None), (512, torch.bfloat16))
 BLOCKED_WIDTHS = (256, 40)
+# Neighbour-sampled minibatches: the batch, and the fanouts of the GraphSAGE
+# (3 layers) and of the GAT and host-feature (2 layers) paths
+SAMPLED_BATCH = 1024
+SAGE_FANOUTS, GAT_FANOUTS = (15, 10, 5), (10, 5)
 # float32: hub rows sum thousands of terms in another order than the plain
 # version's atomics. bfloat16: the plain version sums the same bf16 inputs
 # in float32 and rounds once, so the two differ by at most one bf16 rounding
@@ -107,6 +136,13 @@ KERNELS = {
     "csr_spmm_heads": dict(
         source="gnn_tpu_torch/csrc/gat_spmm.cu",
         replaces="gnn_tpu/mp/gat.py:201",
+    ),
+    # A composition, not a kernel of its own: torch.bmm (the library) over the
+    # dense blocks, then K1 over the remainder CSR
+    "blocked_matvec": dict(
+        source="gnn_tpu_torch/graphs/blocked.py",
+        replaces="gnn_tpu/graphs/blocked.py:603",
+        composition="torch.bmm over the dense blocks + csr_spmm (gnn_tpu_torch/csrc/csr_spmm.cu) over the remainder",
     ),
 }
 COUNTERS = {
@@ -386,11 +422,21 @@ def phase1_blocked(edges: np.ndarray, dev, results, by_graph) -> None:
                 diag_ms = time_ms(lambda: _diag_product(lay.diag, xw))
                 rem_ms = time_ms(lambda: csr_spmm(lay.rem_row_ptr, lay.rem_src, lay.rem_w, v))
                 rem_bound = bounds.csr_spmm_bound(N_NODES, N_NODES, lay.num_rem_edges, F, v.element_size())
+                # The function's bound (A @ x over every edge) and, beside it, what the
+                # layout asks for: every block entry multiplied, zero or not.
+                bound = bounds.blocked_matvec_bound(N_NODES, adj.num_edges, F, v.element_size())
+                layout_ms = bounds.blocked_layout_cost_ms(
+                    lay.num_blocks, rows, lay.diag.element_size(), N_NODES, lay.num_rem_edges, F, v.element_size())
                 line = (f"phase1-blocked {tag:28s} max_abs_err={err:.3e} blocked_ms={ms:.4f} "
-                        f"plain_ms={plain_ms:.4f} bmm_ms={diag_ms:.4f} k1_remainder_ms={rem_ms:.4f} "
+                        f"plain_ms={plain_ms:.4f} bound_ms={bound.bound_ms:.4f} ({bound.bound_by}) "
+                        f"layout_cost_ms={layout_ms:.4f} bmm_ms={diag_ms:.4f} k1_remainder_ms={rem_ms:.4f} "
                         f"k1_remainder_bound_ms={rem_bound.bound_ms:.4f} "
                         f"k1_remainder_noreuse_ms={rem_bound.noreuse_ms:.4f}")
+                lib = None
                 if block_dtype is None:
+                    a_csr = sparse_csr(*csr, N_NODES)
+                    lib = library_ms(f"blocked_matvec {tag}", lambda: torch.sparse.mm(a_csr, v), got)
+                    line += f" library_ms={lib:.4f}"
                     full = csr_spmm(*csr, v)
                     err_csr = compare(f"blocked_matvec vs full-CSR K1 {tag}", got, full, torch.float32)
                     check_repeat(f"full-CSR K1 {tag}", csr_spmm, (*csr, v), full)
@@ -404,6 +450,12 @@ def phase1_blocked(edges: np.ndarray, dev, results, by_graph) -> None:
                     F=F, dtype="torch.float32", what=f"blocked {what} {cfg}", err=err, ms=ms, plain_ms=plain_ms,
                 ))
                 results["csr_spmm"]["errs"].append(err)
+                results["blocked_matvec"]["rows"].append(dict(
+                    F=F, dtype="torch.float32", what=f"{what} {cfg}", err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound.bound_ms, bound_by=bound.bound_by, noreuse_ms=bound.noreuse_ms, library_ms=lib,
+                    layout_cost_ms=layout_ms,
+                ))
+                results["blocked_matvec"]["errs"].append(err)
             del x, g
         del adj
         torch.cuda.empty_cache()
@@ -472,17 +524,9 @@ def phase1_gat(adj, dev, results, by_graph) -> None:
                  (adj.t_row_ptr, adj.t_perm, None, ge), bounds.csr_spmm_bound(n, e, e, H, size, weighted=False),
                  lambda: torch.sparse.mm(a_perm, ge)),
             )
-            for name, what, kernel, plain, args, bound, library in cases:
-                got = kernel(*args)
-                err = compare(f"{name} {what} {tag}", got, plain(*args), dtype)
-                check_repeat(f"{name} {what} {tag}", kernel, args, got)
-                lib = None
-                if dtype == torch.float32:
-                    lib = library_ms(f"{name} {what} {tag}", library, got)
-                ms = time_ms(lambda: kernel(*args))
-                record(results, name, what, tag, dtype, err, ms, time_ms(lambda: plain(*args)), bound, lib, H=H, F=F)
-                if (name, what, H, dtype) == ("csr_spmm_heads", "fwd num", GAT_HEADS[0][0], torch.float32):
-                    by_graph["K3"]["power-law"] = graph_stats(adj, ms)
+            ms = check_cases(results, cases, tag, dtype, H=H, F=F)
+            if (H, dtype) == (GAT_HEADS[0][0], torch.float32):
+                by_graph["K3"]["power-law"] = graph_stats(adj, ms["csr_spmm_heads", "fwd num"])
             log(f"phase1 bitwise repeat {tag}: K3 fwd, K3 dh, K2, K1 equal")
         del ex, alpha, x32, g32, ge32, a_fwd, a_t, a_perm
         torch.cuda.empty_cache()
@@ -498,37 +542,140 @@ def phase1_unweighted(adj, dev, results) -> None:
     gen = torch.Generator(device=dev).manual_seed(3)
     n, e = adj.num_dst_nodes, adj.num_edges
     ones = torch.ones(e, device=dev)
-    cases = (
-        ("fwd A@x, w null", (adj.row_ptr, adj.src), sparse_csr(adj.row_ptr, adj.src, ones, n)),
-        ("bwd dx, w null", (adj.t_row_ptr, adj.t_col), sparse_csr(adj.t_row_ptr, adj.t_col, ones, n)),
-    )
+    a_fwd = sparse_csr(adj.row_ptr, adj.src, ones, n)
+    a_t = sparse_csr(adj.t_row_ptr, adj.t_col, ones, n)
     for F in UNWEIGHTED_WIDTHS:
         x32 = torch.rand(n, F, generator=gen, device=dev) / 256
         for dtype in (torch.float32, torch.bfloat16):
             tag = f"F={F} {str(dtype).removeprefix('torch.')}"
             x = x32.to(dtype)
             bound = bounds.csr_spmm_bound(n, n, e, F, x.element_size(), weighted=False)
-            for what, (ptr, col), a in cases:
-                args = (ptr, col, None, x)
-                got = csr_spmm(*args)
-                err = compare(f"csr_spmm {what} {tag}", got, csr_spmm_plain(*args), dtype)
-                check_repeat(f"csr_spmm {what} {tag}", csr_spmm, args, got)
-                lib = None
-                if dtype == torch.float32:
-                    lib = library_ms(f"csr_spmm {what} {tag}", lambda: torch.sparse.mm(a, x), got)
-                record(results, "csr_spmm", what, tag, dtype, err, time_ms(lambda: csr_spmm(*args)),
-                       time_ms(lambda: csr_spmm_plain(*args)), bound, lib, F=F)
+            check_cases(results, (
+                ("csr_spmm", "fwd A@x, w null", csr_spmm, csr_spmm_plain, (adj.row_ptr, adj.src, None, x), bound,
+                 lambda: torch.sparse.mm(a_fwd, x)),
+                ("csr_spmm", "bwd dx, w null", csr_spmm, csr_spmm_plain, (adj.t_row_ptr, adj.t_col, None, x), bound,
+                 lambda: torch.sparse.mm(a_t, x)),
+            ), tag, dtype, F=F)
             log(f"phase1 bitwise repeat {tag}: K1 fwd and dx with a null weight equal")
         del x32
         torch.cuda.empty_cache()
 
 
-def arxiv_scale_data(edges: np.ndarray) -> Data:
+def check_cases(results, cases, tag: str, dtype, **shape) -> dict:
+    """Each case (kernel name, what, kernel, plain version, args, bound,
+    library call): the kernel against its plain version and a second call of
+    itself, its time, the plain version's and, in float32, the library
+    call's, as one phase-1 row. Returns the kernel's ms by (name, what)."""
+    times = {}
+    for name, what, kernel, plain, args, bound, library in cases:
+        got = kernel(*args)
+        err = compare(f"{name} {what} {tag}", got, plain(*args), dtype)
+        check_repeat(f"{name} {what} {tag}", kernel, args, got)
+        lib = library_ms(f"{name} {what} {tag}", library, got) if dtype == torch.float32 else None
+        times[name, what] = time_ms(lambda: kernel(*args))
+        record(results, name, what, tag, dtype, err, times[name, what],
+               time_ms(lambda: plain(*args)), bound, lib, **shape)
+    return times
+
+
+def hop_names(n: int) -> tuple:
+    """Names of a path's 2 or 3 hops, outermost first."""
+    return ("outer", "middle")[:n - 1] + ("inner",)
+
+
+def phase1_hop(dev, results) -> None:
+    """K1, K2 and K3 over the constant bipartite CSRs of neighbour-sampled
+    hops, at every shape that phases 2-sampled-sage, 2-sampled-gat and
+    2-host launch them at: each hop of each path at the width and with the
+    operand the model gives it, forward on every hop, K1's transpose on all
+    but the outermost (whose input is gathered data and needs no gradient).
+    Forward, every one of the n_dst rows holds exactly ``fanout`` edges and
+    ``col`` is contiguous from n_dst: the gather is a streamed read, so the
+    no-reuse figure equals the bound. Transposed, n_dst leading rows hold no
+    edge and each of the E others exactly one."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # GraphSAGE: (path, fanouts, width of each hop's input, outermost first)
+    for path, fanouts, widths in (
+        ("sage", SAGE_FANOUTS, (IN_FEATURES, 256, 256)), ("host", GAT_FANOUTS, (IN_FEATURES, 256)),
+    ):
+        hops = hop_adjacencies(SAMPLED_BATCH, fanouts)
+        for label, adj, F in zip(hop_names(len(hops)), hops, widths):
+            adj = adj.to(dev)
+            n_dst, n_src, e = adj.num_dst_nodes, adj.num_src_nodes, adj.num_edges
+            log(f"phase1-hop GraphSAGE ({path}) {label} hop of batch {SAMPLED_BATCH}, fanouts {list(fanouts)}: "
+                f"{n_dst} destinations x {e // n_dst} = {e} edges over {n_src} sources, F={F}")
+            ones = torch.ones(e, device=dev)
+            a_fwd = sparse_csr(adj.row_ptr, adj.src, ones, n_src)
+            a_t = sparse_csr(adj.t_row_ptr, adj.t_col, ones, n_dst)
+            x32 = torch.randn(n_src, F, generator=gen, device=dev)
+            g32 = torch.randn(n_dst, F, generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{path}-{label} F={F} {str(dtype).removeprefix('torch.')}"
+                x, g = x32.to(dtype), g32.to(dtype)
+                size = x.element_size()
+                cases = [
+                    ("csr_spmm", "hop fwd, w null", csr_spmm, csr_spmm_plain, (adj.row_ptr, adj.src, None, x),
+                     bounds.csr_spmm_bound(n_dst, n_src, e, F, size, weighted=False),
+                     lambda: torch.sparse.mm(a_fwd, x)),
+                ]
+                if label != "outer":
+                    cases.append(
+                        ("csr_spmm", "hop dx, w null", csr_spmm, csr_spmm_plain, (adj.t_row_ptr, adj.t_col, None, g),
+                         bounds.csr_spmm_bound(n_src, n_dst, e, F, size, weighted=False),
+                         lambda: torch.sparse.mm(a_t, g)))
+                check_cases(results, cases, tag, dtype, F=F, hop=f"{path}-{label}", edges=e)
+                log(f"phase1-hop bitwise repeat {tag}: K1 {' and '.join(what for _, what, *_ in cases)} equal")
+            del x32, g32, a_fwd, a_t
+
+    # The GAT: the hidden layer's (H, F) on the outer hop, the output layer's on the inner
+    hops = hop_adjacencies(SAMPLED_BATCH, GAT_FANOUTS)
+    for label, adj, (H, F) in zip(hop_names(len(hops)), hops, GAT_HEADS):
+        adj = adj.to(dev)
+        n_dst, n_src, e = adj.num_dst_nodes, adj.num_src_nodes, adj.num_edges
+        log(f"phase1-hop GAT {label} hop of batch {SAMPLED_BATCH}, fanouts {list(GAT_FANOUTS)}: "
+            f"{n_dst} destinations x {e // n_dst} = {e} edges over {n_src} sources, (H,F)=({H},{F})")
+        ex, alpha = attention_weights(adj, H, gen)
+        x32 = torch.randn(n_src, H, F, generator=gen, device=dev)
+        g32 = torch.randn(n_dst, H, F, generator=gen, device=dev)
+        ge32 = torch.randn(e, H, generator=gen, device=dev)
+        a_fwd = heads_csr(adj.row_ptr, adj.src, alpha, n_src)
+        a_t = heads_csr(adj.t_row_ptr, adj.t_col, alpha.index_select(0, adj.t_perm.long()), n_dst)
+        a_perm = sparse_csr(adj.t_row_ptr, adj.t_perm, torch.ones(e, device=dev), e)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"gat-{label} H={H} F={F} {str(dtype).removeprefix('torch.')}"
+            x, g, ge, exd = x32.to(dtype), g32.to(dtype), ge32.to(dtype), ex.to(dtype)
+            size = x.element_size()
+            check_cases(results, (
+                ("csr_spmm_heads", "hop fwd num", csr_spmm_heads, csr_spmm_heads_plain,
+                 (adj.row_ptr, adj.src, alpha, x), bounds.csr_spmm_heads_bound(n_dst, n_src, e, H, F, size),
+                 lambda: heads_product(a_fwd, x)),
+                ("csr_spmm_heads", "hop bwd dh", csr_spmm_heads, csr_spmm_heads_plain,
+                 (adj.t_row_ptr, adj.t_col, alpha, g, adj.t_perm),
+                 bounds.csr_spmm_heads_bound(n_src, n_dst, e, H, F, size, indexed=True),
+                 lambda: heads_product(a_t, g)),
+                ("segment_sum_csr", f"hop den [E,{H}]", segment_sum_csr, segment_sum_csr_plain,
+                 (adj.row_ptr, exd), bounds.segment_sum_bound(n_dst, e, H, size),
+                 lambda: torch.segment_reduce(exd, "sum", offsets=adj.row_ptr, axis=0, unsafe=True)),
+                ("csr_spmm", "hop gather_src VJP", csr_spmm, csr_spmm_plain,
+                 (adj.t_row_ptr, adj.t_perm, None, ge), bounds.csr_spmm_bound(n_src, e, e, H, size, weighted=False),
+                 lambda: torch.sparse.mm(a_perm, ge)),
+            ), tag, dtype, H=H, F=F, hop=f"gat-{label}", edges=e)
+            log(f"phase1-hop bitwise repeat {tag}: K3 fwd, K3 dh, K2, K1 equal")
+        del ex, alpha, x32, g32, ge32, a_fwd, a_t, a_perm
+    torch.cuda.empty_cache()
+
+
+def arxiv_scale_data(edges: np.ndarray, signal: float = 0.0, host_arrays: bool = False) -> Data:
     """Seeded 128-dim features, 40 classes and a 54/18/28 % split (the
-    proportions of ogbn-arxiv) on the arxiv-scale graph."""
+    proportions of ogbn-arxiv) on the arxiv-scale graph. ``signal`` adds that
+    multiple of a seeded per-class centroid to the noise features, so that a
+    few steps can lower the loss; ``host_arrays`` keeps everything in numpy."""
     rng = np.random.default_rng(0)
     x = rng.normal(size=(N_NODES, IN_FEATURES)).astype(np.float32)
     y = rng.integers(0, NUM_CLASSES, N_NODES)
+    if signal:
+        centroids = np.random.default_rng(1).normal(size=(NUM_CLASSES, IN_FEATURES)).astype(np.float32)
+        x += np.float32(signal) * centroids[y]
     perm = rng.permutation(N_NODES)
     n_train, n_val = int(0.54 * N_NODES), int(0.18 * N_NODES)
     masks = {k: np.zeros(N_NODES, bool) for k in ("train", "val", "test")}
@@ -537,7 +684,7 @@ def arxiv_scale_data(edges: np.ndarray) -> Data:
     masks["test"][perm[n_train + n_val :]] = True
     return Data(
         x=x, edge_index=edges, y=y, num_nodes=N_NODES,
-        train_mask=masks["train"], val_mask=masks["val"], test_mask=masks["test"],
+        train_mask=masks["train"], val_mask=masks["val"], test_mask=masks["test"], host_arrays=host_arrays,
     )
 
 
@@ -594,47 +741,69 @@ def arxiv_gin_config(epochs: int = 5) -> Config:
     return cfg
 
 
+def arxiv_sampled_config(model: str, fanouts, steps: int, host_features: bool = False) -> Config:
+    """The arxiv-scale recipe of ``model`` on neighbour-sampled minibatches of
+    1024 seeds: one layer per fanout, one batch a step, evaluated after
+    every step (the host-feature path, whose evaluation is neighbour-sampled
+    on the host too, after every fifth)."""
+    cfg = {"sage": arxiv_sage_config, "gat": arxiv_gat_config}[model](steps)
+    cfg.model.num_layers = len(fanouts)
+    cfg.train.batch_size, cfg.train.fanouts, cfg.train.host_features = SAMPLED_BATCH, list(fanouts), host_features
+    cfg.train.eval_every = 5 if host_features else 1
+    return cfg
+
+
 def read_counters() -> dict:
     return {name: counter.launches for name, counter in COUNTERS.items()}
 
 
-def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None) -> tuple:
+def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None, falling: bool = False) -> tuple:
     """Train through ``fit`` with every launch counter at 0 just before and
-    read just after; check finite losses and the launches per kernel.
-    Returns the launches in all and those of one training step: the counters
-    are also read around each of ``fit``'s evaluations, whose launches are
-    taken off before dividing by the epochs. ``check(model, state)`` looks
-    at what ``fit`` returned."""
+    read just after; check finite losses (``falling``: the mean of the last
+    quarter below that of the first) and the launches per kernel. Returns
+    the launches in all and those of one training step: the counters are
+    also read around each of ``fit``'s evaluations (full-graph or
+    neighbour-sampled on the host), whose launches are taken off before
+    dividing by the epochs. ``check(model, state, history)`` looks at what
+    ``fit`` returned."""
     in_eval = dict.fromkeys(COUNTERS, 0)
-    evaluate = loop.evaluate
+    originals = {"evaluate": loop.evaluate, "host_evaluate": loop.host_evaluate}
 
-    def counted_evaluate(*args):
-        before = read_counters()
-        out = evaluate(*args)
-        for name, count in read_counters().items():
-            in_eval[name] += count - before[name]
-        return out
+    def counted(evaluate):
+        def run(*args):
+            before = read_counters()
+            out = evaluate(*args)
+            for name, count in read_counters().items():
+                in_eval[name] += count - before[name]
+            return out
+        return run
 
     for counter in COUNTERS.values():
         counter.launches = 0
-    loop.evaluate = counted_evaluate
+    for name, evaluate in originals.items():
+        setattr(loop, name, counted(evaluate))
     try:
         model, state, history = fit(cfg, data, device=dev, verbose=False)
     finally:
-        loop.evaluate = evaluate
+        for name, evaluate in originals.items():
+            setattr(loop, name, evaluate)
     launches = read_counters()
     if check is not None:
-        check(model, state)
+        check(model, state, history)
     per_step = {name: (launches[name] - in_eval[name]) / cfg.train.epochs for name in COUNTERS}
 
     losses = [h["loss"] for h in history]
     step_ms = [h["step_ms"] for h in history]
-    log(f"{label} losses per epoch: {losses}")
-    log(f"{label} step ms per epoch (synced): {step_ms}")
-    log(f"{label} median ms/epoch over epochs 2-5: {float(np.median(step_ms[1:])):.3f}")
+    logged = cfg.train.epochs // cfg.train.eval_every
+    log(f"{label} losses per logged step: {losses}")
+    log(f"{label} step ms per logged step (synced): {step_ms}")
+    log(f"{label} median step ms over logged steps 2-{logged}: {float(np.median(step_ms[1:])):.3f}")
     log(f"{label} launches: {launches} (expected {want}); per training step: {per_step}")
-    if len(losses) != cfg.train.epochs or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"{label}: expected {cfg.train.epochs} finite losses, got {losses}")
+    if len(losses) != logged or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: expected {logged} finite losses, got {losses}")
+    quarter = max(len(losses) // 4, 1)
+    if falling and not np.mean(losses[-quarter:]) < np.mean(losses[:quarter]):
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
     return launches, per_step
@@ -672,7 +841,7 @@ def phase2_encoder(data: Data, dev) -> tuple:
     returns must be finite and moved from their initial (0, 1)."""
     cfg = arxiv_encoder_config()
 
-    def check(model, state):
+    def check(model, state, history):
         if state is None or list(state) != [name for name, _ in model.named_buffers()]:
             raise AssertionError(f"phase2-encoder: fit returned buffer state {state}")
         for name, value in state.items():
@@ -707,6 +876,63 @@ def phase2_gin(data: Data, dev) -> tuple:
     at F = 128, 256, 256."""
     cfg = arxiv_gin_config()
     return train_phase("phase2-gin", cfg, data, dev, first_layer_free(cfg))
+
+
+def phase2_sampled_sage(data: Data, dev) -> tuple:
+    """This slice's main path at full width: GraphSAGE 3 x 256 (mean) on
+    neighbour-sampled minibatches of 1024 seeds with fanouts [15, 10, 5],
+    sampler, features, labels and hop adjacencies on the card. A step draws
+    the 1,081,344-entry node list, gathers its features and runs K1 with a
+    null weight over the three hop CSRs forward and over two transposes (the
+    outermost hop's input is gathered data); each full-graph evaluation
+    runs K1 three times."""
+    cfg = arxiv_sampled_config("sage", SAGE_FANOUTS, steps=20)
+    L = cfg.model.num_layers
+    return train_phase("phase2-sampled-sage", cfg, data, dev, k1_only(cfg.train.epochs * (L + (L - 1) + L)),
+                       falling=True)
+
+
+def phase2_sampled_gat(data: Data, dev) -> tuple:
+    """The GAT 2 x (8 x 32) on minibatches of 1024 seeds with fanouts [10,
+    5]. A hop runs K3 (numerator) and K2 (denominator) forward; backward K3
+    (dh; the first hop's too, its input being ``lin``'s output), K1 (the
+    source gather's VJP) and K2 (the destination gather's VJP): K1 2, K2 4,
+    K3 4 a step. The full-graph evaluation adds K2 2 and K3 2."""
+    cfg = arxiv_sampled_config("gat", GAT_FANOUTS, steps=20)
+    n = cfg.train.epochs * cfg.model.num_layers
+    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "blocked_matvec": 0}
+    return train_phase("phase2-sampled-gat", cfg, data, dev, want, falling=True)
+
+
+def phase2_host(edges: np.ndarray, dev) -> tuple:
+    """``train.host_features`` on a ``Data(host_arrays=True)``: GraphSAGE 2 x
+    256 on minibatches of 1024 seeds with fanouts [10, 5], sampled and
+    gathered on the host (67,584 rows of 128 features a step), the slab
+    copied through pinned memory; nothing graph- or feature-sized on the
+    card. Evaluated after steps 5 and 10, neighbour-sampled through the
+    same loader in chunks of 1024 ids over the three splits. K1: 2 forward
+    and 1 dx a step, 2 a chunk of an evaluation."""
+    cfg = arxiv_sampled_config("sage", GAT_FANOUTS, steps=10, host_features=True)
+    data = arxiv_scale_data(edges, signal=1.0, host_arrays=True)
+    chunks = sum(
+        math.ceil(int(mask.sum()) / SAMPLED_BATCH) for mask in (data.train_mask, data.val_mask, data.test_mask)
+    )
+    evaluations = cfg.train.epochs // cfg.train.eval_every
+    L = cfg.model.num_layers
+
+    def check(model, state, history):
+        for h in history:
+            log(f"phase2-host step_ms={h['step_ms']:.3f} of which on the host: sample + gather "
+                f"{h['host_batch_ms']:.3f} ms, staging + copy enqueue {h['host_copy_ms']:.3f} ms; "
+                f"neighbour-sampled val_acc={h['val_acc']:.4f} ({chunks} chunks an evaluation)")
+        if next(model.parameters()).device.type != "cuda":
+            raise AssertionError("phase2-host: the model is not on the card")
+
+    t0 = time.perf_counter()
+    out = train_phase("phase2-host", cfg, data, dev,
+                      k1_only(cfg.train.epochs * (2 * L - 1) + evaluations * chunks * L), check, falling=True)
+    log(f"phase2-host: {cfg.train.epochs} steps and {evaluations} evaluations in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def phase2_cluster(data: Data, dev) -> dict:
@@ -745,6 +971,60 @@ def card_vs_cpu(label: str, make_model, data: Data, adj_cpu, dev) -> None:
     for name, b_gpu in model_gpu.named_buffers():
         compare(f"phase3 small-graph {label} buffer {name}", b_gpu.cpu(), buffers[name], torch.float32)
     log(f"phase3 small-graph {label} logits, grads and {len(buffers)} buffers: card matches CPU")
+
+
+def sampled_card_vs_cpu(label: str, make_model, data: Data, dev, want: tuple) -> None:
+    """``forward_sampled`` logits and gradients on the card against the CPU
+    for one node list, and the launches (K1, K2, K3) it took."""
+    sampler = NeighborSampler(data, [5, 3])
+    nodes, adjs_cpu = sampler.sample(torch.Generator().manual_seed(0), torch.arange(64))
+    adjs_gpu = sampler.to(dev).adjacencies(64)
+    model_cpu = make_model(torch.Generator().manual_seed(0))
+    model_gpu = make_model(None).to(dev)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    before = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    outs = []
+    for model, adjs, device in ((model_cpu, adjs_cpu, "cpu"), (model_gpu, adjs_gpu, dev)):
+        out = model.forward_sampled(data.x[nodes].to(device), adjs)
+        cross_entropy(out, data.y[:64].to(device)).backward()
+        outs.append(out.detach().cpu())
+    took = tuple(a - b for a, b in zip((csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches), before))
+    compare(f"phase3 sampled {label} logits (card vs CPU)", outs[1], outs[0], torch.float32)
+    for (name, p_gpu), p_cpu in zip(model_gpu.named_parameters(), model_cpu.parameters()):
+        if p_cpu.requires_grad:
+            compare(f"phase3 sampled {label} grad {name}", p_gpu.grad.cpu(), p_cpu.grad, torch.float32)
+    log(f"phase3 sampled {label} forward_sampled logits and grads: card matches CPU; K1, K2, K3 launches {took}")
+    if took != want:
+        raise AssertionError(f"phase3: sampled {label} launched (K1, K2, K3) {took}, not {want}")
+
+
+def resume_on_card(label: str, dev, **overrides) -> None:
+    """Six epochs in one run against four, a stop, and a resumed run to six
+    from the checkpoint: the same losses and accuracies (rtol 1e-6; the
+    kernels and the restored generators repeat bit for bit, the library's
+    products are not promised to)."""
+    data = stochastic_block_model(num_nodes=400, num_classes=4, seed=3)
+
+    def config(epochs, directory=""):
+        cfg = Config()
+        cfg.model.hidden, cfg.model.dropout = 32, 0.5
+        cfg.train.epochs, cfg.train.eval_every = epochs, 1
+        cfg.train.checkpoint_dir, cfg.train.checkpoint_every = directory, 2
+        return cfg.apply_overrides([f"{k}={v}" for k, v in overrides.items()])
+
+    _, _, whole = fit(config(6), data, device=dev, verbose=False)
+    with tempfile.TemporaryDirectory() as directory:
+        _, _, head = fit(config(4, directory), data, device=dev, verbose=False)
+        _, _, tail = fit(config(6, directory), data, device=dev, resume=True, verbose=False)
+    if len(head) != 4 or len(tail) != 2:
+        raise AssertionError(f"phase3 resume {label}: {len(head)} + {len(tail)} logged epochs, not 4 + 2")
+    for key in ("loss", "train_acc", "val_acc", "test_acc"):
+        got, want = [h[key] for h in head + tail], [h[key] for h in whole]
+        if not np.allclose(got, want, rtol=1e-6, atol=0.0):
+            raise AssertionError(f"phase3 resume {label}: {key} {got} after the resume, {want} uninterrupted")
+    same = [h["loss"] for h in head + tail] == [h["loss"] for h in whole]
+    log(f"phase3 resume {label}: stop at 4 and resume to 6 equals the uninterrupted run "
+        f"({'bit for bit' if same else 'within rtol 1e-6'}); losses {[h['loss'] for h in whole]}")
 
 
 def kipf_band(dev, reorder: str = "auto") -> None:
@@ -817,6 +1097,21 @@ def phase3(dev) -> None:
         if rc != 0:
             raise AssertionError(f"phase3: cli.main {' '.join(flags)} returned {rc}")
 
+    # Sampled minibatches at small size: card against CPU, the CLI, resume.
+    sampled_card_vs_cpu("GraphSAGE", lambda gen: GraphSAGE(F, 32, 4, dropout=0.0, generator=gen), data, dev, (3, 0, 0))
+    sampled_card_vs_cpu("GAT", lambda gen: GAT(F, 8, 4, heads=4, dropout=0.0, generator=gen), data, dev, (2, 4, 4))
+    sampled_card_vs_cpu("GIN", lambda gen: GIN(F, 32, 4, num_layers=2, generator=gen), data, dev, (3, 0, 0))
+    for name in ("sage", "gat", "gin"):
+        flags = ["--model.name", name, "--train.batch_size", "64", "--train.fanouts", "[4,4]"]
+        rc = cli.main(["--dataset", "sbm", "--device", "cuda", *flags, "--train.epochs", "100"])
+        log(f"phase3 cli.main {' '.join(flags)} returned {rc}")
+        if rc != 0:
+            raise AssertionError(f"phase3: cli.main {' '.join(flags)} returned {rc}")
+    resume_on_card("GCN full graph, dropout 0.5", dev)
+    resume_on_card("EncoderGCN (buffers)", dev, **{"model.name": "encoder_gcn"})
+    resume_on_card("GraphSAGE sampled", dev,
+                   **{"model.name": "sage", "train.batch_size": 64, "train.fanouts": "[4,4]"})
+
 
 def main() -> int:
     phase0()
@@ -834,6 +1129,7 @@ def main() -> int:
     phase1(adj, dev, checks, by_graph)
     phase1_gat(adj, dev, checks, by_graph)
     phase1_unweighted(adj, dev, checks)
+    phase1_hop(dev, checks)
     del adj
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -849,6 +1145,10 @@ def main() -> int:
         "sage": phase2_sage(data, dev), "gin": phase2_gin(data, dev),
     }
     del data
+    sampled = arxiv_scale_data(edges, signal=1.0)
+    runs.update({"sage-sampled": phase2_sampled_sage(sampled, dev), "gat-sampled": phase2_sampled_gat(sampled, dev)})
+    del sampled
+    runs["sage-host"] = phase2_host(edges, dev)
     cluster_runs = phase2_cluster(arxiv_scale_data(clustered), dev)
     runs.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})
     by_path = {path: launches for path, (launches, _) in runs.items()}
@@ -859,6 +1159,7 @@ def main() -> int:
         "csr_spmm": dict(F=256, what="fwd A@x"),
         "segment_sum_csr": dict(H=8, what="den [E,8]"),
         "csr_spmm_heads": dict(H=8, what="fwd num"),
+        "blocked_matvec": dict(F=256, what="fwd A@x R=256 float32"),
     }
     entries = []
     for name, meta in KERNELS.items():
@@ -868,7 +1169,7 @@ def main() -> int:
         if launches == 0:
             raise AssertionError(f"{name} was not launched on any main path")
         entries.append(dict(
-            name=name, route="cuda", source=meta["source"], replaces=meta["replaces"],
+            name=name, route="cuda", **meta,
             launches=launches, max_abs_err=max(checks[name]["errs"]),
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],

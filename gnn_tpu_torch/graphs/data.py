@@ -7,6 +7,9 @@ train/val/test masks, held as torch tensors. ``to(device)`` moves them;
 ``to_adjacency`` runs the one-time host prep (exact ``gcn_norm`` and the CSR
 build) and returns an :class:`~gnn_tpu_torch.graphs.adjacency.Adjacency` on
 the CPU; ``permute_nodes`` moves the node arrays into a relabelled order.
+``Data(host_arrays=True)`` keeps every array as host numpy (``x`` may be an
+``np.memmap``) for ``train.host_features``, which samples and gathers on the
+host; such a ``Data`` never moves to a device.
 :class:`Batch` merges several graphs into one block-diagonal graph.
 """
 
@@ -19,10 +22,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from gnn_tpu_torch.graphs import transforms
+from gnn_tpu_torch.graphs import convert, transforms
 from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
 
-__all__ = ["Data", "Batch"]
+__all__ = ["Data", "Batch", "TRAIN", "VAL", "TEST"]
+
+TRAIN, VAL, TEST = "train", "val", "test"  # the split names of ``set_mask``
 
 
 def _tensor(a, dtype=None) -> Optional[torch.Tensor]:
@@ -30,6 +35,10 @@ def _tensor(a, dtype=None) -> Optional[torch.Tensor]:
         return None
     t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
     return t if dtype is None else t.to(dtype)
+
+
+def _numpy(a) -> Optional[np.ndarray]:
+    return None if a is None else convert.as_numpy(a)
 
 
 @dataclasses.dataclass(init=False)
@@ -42,6 +51,7 @@ class Data:
     val_mask: Optional[torch.Tensor]
     test_mask: Optional[torch.Tensor]
     num_nodes: int
+    host_arrays: bool  # every array above is numpy and stays on the host
 
     def __init__(
         self,
@@ -54,24 +64,34 @@ class Data:
         train_mask=None,
         val_mask=None,
         test_mask=None,
+        host_arrays: bool = False,
     ):
-        edge_index = _tensor(
-            np.zeros((2, 0), np.int64) if edge_index is None else edge_index
-        )
+        """``host_arrays=True`` keeps every array as host numpy, ``edge_index``
+        as int32, and copies nothing: the regime where ``x`` (and the edge
+        list) exceed the device's memory. Pair it with
+        ``train.host_features``. Every shape and range check still runs."""
+        if edge_index is None:
+            edge_index = np.zeros((2, 0), np.int64)
+        edge_index = _numpy(edge_index) if host_arrays else _tensor(edge_index)
         if edge_index.ndim != 2 or edge_index.shape[0] != 2:
             raise ValueError(
                 f"edge_index must have shape [2, num_edges], got {tuple(edge_index.shape)}"
             )
-        if edge_index.dtype.is_floating_point or edge_index.dtype == torch.bool:
+        integral = (
+            np.issubdtype(edge_index.dtype, np.integer)
+            if host_arrays
+            else not (edge_index.dtype.is_floating_point or edge_index.dtype == torch.bool)
+        )
+        if not integral:
             raise ValueError(f"edge_index must be integer-typed, got {edge_index.dtype}")
         if num_nodes is None:
             if x is not None:
                 num_nodes = int(x.shape[0])
-            elif edge_index.numel():
+            elif edge_index.shape[1]:
                 num_nodes = int(edge_index.max()) + 1
             else:
                 num_nodes = 0
-        if edge_index.numel():
+        if edge_index.shape[1]:
             lo, hi = int(edge_index.min()), int(edge_index.max())
             if lo < 0 or hi >= num_nodes:
                 raise ValueError(
@@ -94,6 +114,22 @@ class Data:
         ):
             if m is not None and m.shape[0] != num_nodes:
                 raise ValueError(f"{name} has {m.shape[0]} entries for {num_nodes} nodes")
+        self.num_nodes = int(num_nodes)
+        self.host_arrays = bool(host_arrays)
+        if host_arrays:
+            # The int32 cast below would wrap node ids past 2^31 silently.
+            if num_nodes > np.iinfo(np.int32).max:
+                raise ValueError(
+                    f"num_nodes={num_nodes} exceeds int32: host-array node ids would "
+                    "overflow; shard the node space first"
+                )
+            mask = lambda m: None if m is None else np.asarray(_numpy(m), bool)
+            self.x = _numpy(x)
+            self.edge_index = np.asarray(edge_index, np.int32)
+            self.edge_attr = _numpy(edge_attr)
+            self.y = _numpy(y)
+            self.train_mask, self.val_mask, self.test_mask = mask(train_mask), mask(val_mask), mask(test_mask)
+            return
         self.x = _tensor(x)
         self.edge_index = edge_index.to(torch.int64)
         self.edge_attr = _tensor(edge_attr)
@@ -103,7 +139,6 @@ class Data:
         self.train_mask = _tensor(train_mask, torch.bool)
         self.val_mask = _tensor(val_mask, torch.bool)
         self.test_mask = _tensor(test_mask, torch.bool)
-        self.num_nodes = int(num_nodes)
 
     @property
     def num_edges(self) -> int:
@@ -115,6 +150,11 @@ class Data:
 
     def to(self, device) -> "Data":
         """A copy with every tensor on ``device``."""
+        if self.host_arrays:
+            raise ValueError(
+                "a Data(host_arrays=True) stays on the host: train it with "
+                "train.host_features, or build a Data without host_arrays"
+            )
         out = copy.copy(self)
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -139,8 +179,7 @@ class Data:
         :func:`~gnn_tpu_torch.graphs.adjacency.build_adjacency`. The
         adjacency then speaks a relabelled node space: pair it with
         ``permute_nodes(adj.perm)``."""
-        ei = self.edge_index.cpu().numpy()
-        ew = None if self.edge_attr is None else self.edge_attr.cpu().numpy()
+        ei, ew = _numpy(self.edge_index), _numpy(self.edge_attr)
         if ew is not None and ew.ndim > 1:
             ew = None  # vector-valued edge attrs are features, not weights
         if norm in ("sym", "rw", "row"):
@@ -162,10 +201,37 @@ class Data:
         out = copy.copy(self)
         for name in ("x", "y", "train_mask", "val_mask", "test_mask"):
             v = getattr(self, name)
-            if v is not None:
+            if v is None:
+                continue
+            if self.host_arrays:
+                setattr(out, name, v[perm.numpy()])
+            else:
                 setattr(out, name, v.index_select(0, perm.to(v.device)))
-        out.edge_index = old2new.to(self.edge_index.device)[self.edge_index]
+        if self.host_arrays:
+            out.edge_index = old2new.numpy()[self.edge_index].astype(np.int32)
+        else:
+            out.edge_index = old2new.to(self.edge_index.device)[self.edge_index]
         return out
+
+    def set_mask(self, mask, split: str) -> "Data":
+        """A copy with the ``split`` mask (``TRAIN``, ``VAL`` or ``TEST``)
+        replaced by ``mask`` [N] (cast to bool)."""
+        if split not in (TRAIN, VAL, TEST):
+            raise ValueError(f"split must be one of {TRAIN}/{VAL}/{TEST}, got {split}")
+        if self.host_arrays:
+            mask = np.asarray(_numpy(mask), bool)
+        else:
+            mask = _tensor(mask, torch.bool).to(self.edge_index.device)
+        if mask.shape[0] != self.num_nodes:
+            raise ValueError(f"{split}_mask has {mask.shape[0]} entries for {self.num_nodes} nodes")
+        out = copy.copy(self)
+        setattr(out, f"{split}_mask", mask)
+        return out
+
+    def to_dense_adj(self) -> torch.Tensor:
+        """Dense [N, N] float32 with ``A[dst, src] = edge_attr`` (ones without
+        it); for tests and small graphs only."""
+        return convert.to_dense_adj(self.edge_index, self.edge_attr, self.num_nodes)
 
 
 @dataclasses.dataclass(init=False)

@@ -9,6 +9,7 @@ arrays (compared in ``tests/test_torch_graphs.py``):
 * :func:`cora_like` — a seeded stand-in with Planetoid Cora's published
   statistics (2708 nodes, 5278 pairs, 7 classes, 1433 binary features, the
   140/500/1000 split);
+* :func:`random_regular` — approximately d-regular directed edges;
 * :func:`power_law` — skewed destination popularity (ogbn-arxiv-like);
 * :func:`clustered_power_law` — community-structured power-law edges with
   shuffled ids, at scale (the cluster-blocked layout's workload);
@@ -22,7 +23,9 @@ import numpy as np
 from gnn_tpu_torch.graphs.data import Data
 from gnn_tpu_torch.graphs.transforms import coalesce, remove_self_loops, to_undirected
 
-__all__ = ["stochastic_block_model", "cora_like", "power_law", "clustered_power_law", "karate_club"]
+__all__ = [
+    "stochastic_block_model", "cora_like", "random_regular", "power_law", "clustered_power_law", "karate_club",
+]
 
 
 def stochastic_block_model(
@@ -139,6 +142,18 @@ def cora_like(*, seed: int = 0) -> Data:
         val_mask=val_mask,
         test_mask=test_mask,
     )
+
+
+def random_regular(num_nodes: int, degree: int, *, seed: int = 0) -> np.ndarray:
+    """Approximately d-regular directed edge list [2, <= N d]: every node
+    sends ``degree`` edges to destinations drawn with replacement (self loops
+    removed, duplicates coalesced, dst-sorted)."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(num_nodes), degree)
+    dst = rng.integers(0, num_nodes, num_nodes * degree)
+    ei, _ = remove_self_loops(np.stack([src, dst]))
+    ei, _ = coalesce(ei, num_nodes=num_nodes)
+    return ei
 
 
 def power_law(

@@ -12,7 +12,7 @@ the attention dropouts in turn.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -69,8 +69,23 @@ class GAT(nn.Module):
                 x = elu(x)
         return x
 
-    def forward_sampled(self, x, adjs, *, generator=None):
-        raise NotImplementedError(
-            "GAT.forward_sampled (neighbour-sampled minibatches) is not ported yet "
-            "(ROADMAP Queue 1 item 13)"
-        )
+    def forward_sampled(
+        self,
+        x: torch.Tensor,
+        adjs: Sequence[Adjacency],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Minibatch forward over one bipartite adjacency per hop (outermost
+        first): the protocol of ``GraphSAGE.forward_sampled``. Each conv
+        takes the hop's destinations from the prefix of its input itself.
+        As in the JAX package, this path applies the attention dropout only,
+        not ``forward``'s dropout of each layer's input."""
+        n = len(self.convs)
+        if len(adjs) != n:
+            raise ValueError(f"need {n} hop adjacencies, got {len(adjs)}")
+        for i, (conv, adj) in enumerate(zip(self.convs, adjs)):
+            x = conv(x, adj, generator=generator)
+            if i < n - 1:
+                x = elu(x)
+        return x

@@ -10,7 +10,7 @@ are summed per graph before the head. Parameter names
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -59,8 +59,18 @@ class GIN(nn.Module):
             x = segment_sum(x, graph_id, num_graphs)
         return self.head(x)
 
-    def forward_sampled(self, x, adjs, *, generator=None):
-        raise NotImplementedError(
-            "GIN.forward_sampled (neighbour-sampled minibatches) is not ported yet "
-            "(ROADMAP Queue 1 item 13)"
-        )
+    def forward_sampled(
+        self,
+        x: torch.Tensor,
+        adjs: Sequence[Adjacency],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Minibatch forward over one bipartite adjacency per hop (outermost
+        first): the protocol of ``GraphSAGE.forward_sampled``."""
+        n = len(self.convs)
+        if len(adjs) != n:
+            raise ValueError(f"need {n} hop adjacencies, got {len(adjs)}")
+        for conv, adj in zip(self.convs, adjs):
+            x = conv(x, adj, x[: adj.num_dst_nodes], generator=generator)
+        return self.head(x)

@@ -8,7 +8,7 @@ model's.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -51,8 +51,22 @@ class GraphSAGE(nn.Module):
                 x = self.dropout(relu(x), generator=generator)
         return x
 
-    def forward_sampled(self, x, adjs, *, generator=None):
-        raise NotImplementedError(
-            "GraphSAGE.forward_sampled (neighbour-sampled minibatches) is not ported yet "
-            "(ROADMAP Queue 1 item 13)"
-        )
+    def forward_sampled(
+        self,
+        x: torch.Tensor,
+        adjs: Sequence[Adjacency],
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Minibatch forward over one bipartite adjacency per hop (outermost
+        first), as neighbour sampling makes them; x holds the features of the
+        sampled node list. After hop i only the first
+        ``adjs[i].num_dst_nodes`` rows remain."""
+        n = len(self.convs)
+        if len(adjs) != n:
+            raise ValueError(f"need {n} hop adjacencies, got {len(adjs)}")
+        for i, (conv, adj) in enumerate(zip(self.convs, adjs)):
+            x = conv(x, adj, x[: adj.num_dst_nodes])
+            if i < n - 1:
+                x = self.dropout(relu(x), generator=generator)
+        return x

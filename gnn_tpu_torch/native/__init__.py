@@ -14,7 +14,9 @@ gives other labels than the native one, and the port's relabelled layouts
 must equal the JAX package's.
 
 Wrappers, with the JAX package's names and signatures: :func:`sort_edges_csr`,
-:func:`label_propagation`, :func:`cluster_pack` and :func:`refine_windows`.
+:func:`degrees`, :func:`sample_neighbors_host` (the same source and seed give
+the JAX package's draws exactly), :func:`label_propagation`,
+:func:`cluster_pack` and :func:`refine_windows`.
 """
 
 from __future__ import annotations
@@ -31,7 +33,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["load", "sort_edges_csr", "label_propagation", "cluster_pack", "refine_windows"]
+__all__ = [
+    "load", "sort_edges_csr", "degrees", "sample_neighbors_host", "label_propagation", "cluster_pack",
+    "refine_windows",
+]
 
 _REPO = pathlib.Path(__file__).resolve().parents[2]
 _SRC = _REPO / "gnn_tpu" / "native" / "graph_native.cpp"
@@ -127,6 +132,48 @@ def sort_edges_csr(src, dst, num_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
     if rc != 0:
         raise ValueError("edge ids out of range")
     return perm, row_ptr
+
+
+def degrees(nodes, num_nodes: int, weight=None) -> np.ndarray:
+    """Per-node count of the ids in ``nodes`` (or sum of ``weight``, float32
+    values, one per id), float64 [num_nodes]."""
+    nodes = _i64(nodes)
+    if len(nodes) and (nodes.min() < 0 or nodes.max() >= num_nodes):
+        raise ValueError(f"node ids must lie in [0, {num_nodes})")
+    w = None if weight is None else np.ascontiguousarray(weight, np.float32)
+    if w is not None and w.shape != nodes.shape:
+        raise ValueError(f"weight must have one value per id, got {w.shape}")
+    out = np.zeros(num_nodes, np.float64)
+    load().degrees(
+        num_nodes, len(nodes), _ptr(nodes, ctypes.c_int64), _ptr(w, ctypes.c_float),
+        _ptr(out, ctypes.c_double),
+    )
+    return out
+
+
+def sample_neighbors_host(
+    row_ptr, col, seeds, fanout: int, *, seed: int = 0, replace: bool = True
+) -> np.ndarray:
+    """Uniform neighbour sampling on the host: ``fanout`` draws per seed from
+    its CSR row, int64 [S, fanout]. A seed without neighbours gets itself in
+    slot 0 and -1 in the others; without replacement a row shorter than
+    ``fanout`` is padded with -1."""
+    row_ptr, col, seeds = _i64(row_ptr), _i64(col), _i64(seeds)
+    n = len(row_ptr) - 1
+    if len(seeds) and (seeds.min() < 0 or seeds.max() >= n):
+        raise ValueError(f"seed ids must lie in [0, {n})")
+    # Only the seeds' rows are read, so only they are checked: a pass over
+    # the whole CSR on every batch would cost more than the draws.
+    lo, hi = row_ptr[seeds], row_ptr[seeds + 1]
+    if ((lo < 0) | (hi < lo) | (hi > len(col))).any():
+        raise ValueError("row_ptr must be CSR offsets over col")
+    out = np.empty((len(seeds), int(fanout)), np.int64)
+    load().sample_neighbors(
+        _ptr(row_ptr, ctypes.c_int64), _ptr(col, ctypes.c_int64), len(seeds),
+        _ptr(seeds, ctypes.c_int64), int(fanout), ctypes.c_uint64(seed), 1 if replace else 0,
+        _ptr(out, ctypes.c_int64),
+    )
+    return out
 
 
 def label_propagation(

@@ -13,10 +13,11 @@ from gnn_tpu_torch.ops.segment import (
     segment_sum,
     segment_sum_edges,
 )
-from gnn_tpu_torch.ops.spmm import spmm, spmm_edge_weighted
+from gnn_tpu_torch.ops.spmm import spmm, spmm_coo, spmm_edge_weighted
 
 __all__ = [
     "spmm",
+    "spmm_coo",
     "spmm_edge_weighted",
     "gather_src_edges",
     "gather_dst_edges",

@@ -12,6 +12,9 @@ e=(s -> d) of w_e * x[s], differentiable in x (dx = A^T g) and, through
   ``_spmm_blocked`` (``gnn_tpu/ops/spmm.py:137-158``). Its weights are
   layout constants, with no dw, as in JAX.
 
+:func:`spmm_coo` is the one-off product over a bare COO edge list, without a
+prepared adjacency: plain torch on every device.
+
 On the CPU the kernels' plain versions run. The JAX package's other layout
 backends ('ell', 'sorted') are TPU layouts the port does not build (ROADMAP
 Queue 1 item 9); they raise, as does the retired 'pallas'.
@@ -19,12 +22,14 @@ Queue 1 item 9); they raise, as does the retired 'pallas'.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency
 from gnn_tpu_torch.ops.cuda.spmm import spmm_csr
 
-__all__ = ["spmm", "spmm_edge_weighted"]
+__all__ = ["spmm", "spmm_coo", "spmm_edge_weighted"]
 
 _UNPORTED = ("ell", "sorted", "pallas")
 
@@ -77,3 +82,29 @@ def spmm_edge_weighted(adj: Adjacency, weight: torch.Tensor, x: torch.Tensor) ->
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
     return spmm_csr(adj, x, weight)
+
+
+def _coo_messages(src, x, weight):
+    msg = x.index_select(0, src.long())
+    return msg if weight is None else msg * weight[:, None].to(msg.dtype)
+
+
+def spmm_coo(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    x: torch.Tensor,
+    num_dst_nodes: int,
+    weight: Optional[torch.Tensor] = None,
+    *,
+    indices_are_sorted: bool = False,
+) -> torch.Tensor:
+    """One-off COO SpMM without a prepared Adjacency: out[d] = sum over
+    edges (s -> d) of w_e * x[s], differentiable in x and ``weight`` (fine for
+    small graphs and tests). Gather, scale and ``index_add`` on every device,
+    as the JAX one is plain XLA; ``indices_are_sorted`` is accepted for its
+    signature and changes nothing. A caller that wants K1 on an edge list
+    builds an ``Adjacency`` and calls :func:`spmm`."""
+    if x.ndim != 2:
+        raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
+    out = x.new_zeros((int(num_dst_nodes), x.shape[1]))
+    return out.index_add(0, dst.long(), _coo_messages(src, x, weight))

@@ -1,5 +1,7 @@
-"""Config, metrics and the full-graph training loop."""
+"""Config, metrics, checkpoints, the host-feature loader and the training
+loops (full graph and sampled minibatches)."""
 
+from gnn_tpu_torch.train.checkpoint import Checkpointer
 from gnn_tpu_torch.train.config import (
     Config,
     DistConfig,
@@ -7,6 +9,7 @@ from gnn_tpu_torch.train.config import (
     OptimConfig,
     TrainConfig,
 )
+from gnn_tpu_torch.train.host_loader import HostBatchLoader
 from gnn_tpu_torch.train.loop import build_model, build_optimizer, evaluate, fit
 from gnn_tpu_torch.train.metrics import MetricLogger, Throughput
 
@@ -22,4 +25,6 @@ __all__ = [
     "fit",
     "MetricLogger",
     "Throughput",
+    "Checkpointer",
+    "HostBatchLoader",
 ]

@@ -8,7 +8,11 @@ Port of ``gnn_tpu/train/cli.py`` with a ``--device`` flag (default ``cuda``):
 ``--model.name`` is one of gcn, gat, encoder_gcn, sage (with ``--model.aggr
 mean|sum|max``) and gin; ``--optim.name`` one of adam, adamw and sgd (with
 ``--optim.momentum``); ``--optim.grad_clip C`` clips the gradients' global
-norm to C before each step. Any Config field is overridable with a dotted
+norm to C before each step. ``--train.batch_size B --train.fanouts [10,5]``
+trains sage, gat or gin on neighbour-sampled minibatches (with
+``--train.host_features true`` sampled and gathered on the host);
+``--train.checkpoint_dir D [--train.checkpoint_every K]`` writes checkpoints
+(``fit(resume=True)`` continues from the latest). Any Config field is overridable with a dotted
 flag. --config loads a JSON config file first; dotted flags override it.
 """
 

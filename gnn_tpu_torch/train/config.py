@@ -3,8 +3,8 @@
 A copy of ``gnn_tpu/train/config.py`` (the JAX module cannot be imported
 without jax): one dataclass tree, JSON-serializable, with ``section.key=value``
 overrides. The fields are the same, so a config file serves both packages;
-the port's ``fit`` raises on the branches it does not run yet (sampled
-minibatches, partitions, host features, checkpoints, ``reorder='true'``).
+the port's ``fit`` raises on the branches it does not run yet (partitions,
+``reorder='true'``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ class OptimConfig:
 class TrainConfig:
     epochs: int = 200
     seed: int = 0
-    batch_size: int = 0  # 0 = full graph (the only ported mode)
+    batch_size: int = 0  # 0 = full graph; > 0 = neighbour-sampled minibatches of that many seeds
     fanouts: List[int] = field(default_factory=lambda: [10, 5])
     eval_every: int = 10
     # "cluster" relabels the nodes into the cluster-blocked layout. "auto"
@@ -48,10 +48,12 @@ class TrainConfig:
     # degree bucket where that pays, which the port does not do yet, and
     # "true" (that relabelling, forced) raises (ROADMAP Queue 1 item 9).
     reorder: str = "auto"
-    checkpoint_dir: str = ""
-    checkpoint_every: int = 0
+    checkpoint_dir: str = ""  # non-empty: a final checkpoint, and fit(resume=True) reads it
+    checkpoint_every: int = 0  # also after every such epoch that is evaluated
     log_file: str = ""
     patience: int = 0  # early stopping on val accuracy; 0 = off
+    # sample and gather on the host, ship one [batch_nodes, F] slab a step
+    # (needs batch_size > 0; pairs with Data(host_arrays=True))
     host_features: bool = False
 
 

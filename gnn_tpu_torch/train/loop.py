@@ -1,39 +1,66 @@
-"""Full-graph training loop.
+"""Training loops: full graph and sampled minibatches.
 
-Port of the single-device full-graph branch of ``gnn_tpu/train/loop.py::fit``:
-one-time prep (exact ``gcn_norm`` and the CSR adjacency, with the
-cluster-blocked layouts and relabelled nodes under
-``train.reorder='cluster'``, moved to the device), then per epoch the model
--> masked cross entropy -> backward -> (gradient clipping ->) Adam, AdamW or
-SGD, with evaluation, metrics and early stopping on validation accuracy. It
-trains every ``model.name`` of the config: ``gcn``, ``gat`` (ignores the edge
-weights), ``encoder_gcn`` (BatchNorm buffers: updated by the train step, read
-by the evaluation, returned in the middle slot), ``sage`` (scales its
-messages by the ``gcn_norm`` weights, as the JAX ``fit`` hands them to every
-model) and ``gin`` (drops them). Sampled minibatches, multi-device
-partitions, host-resident features, checkpoints and the degree-bucket
-relabelling (``train.reorder='true'``) are not ported yet: their settings
-raise ``NotImplementedError`` (ROADMAP Queue 1).
+Port of the single-device branches of ``gnn_tpu/train/loop.py::fit``:
+
+* **full graph**: one-time prep (exact ``gcn_norm`` and the CSR adjacency,
+  with the cluster-blocked layouts and relabelled nodes under
+  ``train.reorder='cluster'``, moved to the device), then per epoch the model
+  -> masked cross entropy -> backward -> (gradient clipping ->) Adam, AdamW
+  or SGD;
+* **sampled minibatches** (``train.batch_size > 0``; ``sage``, ``gat``,
+  ``gin``): an "epoch" is one batch of seeds drawn with replacement from the
+  training nodes by ``np.random.default_rng(train.seed)``, as in the JAX
+  ``fit``; the :class:`~gnn_tpu_torch.graphs.sampling.NeighborSampler`, the
+  features, the labels and the constant hop adjacencies live on the device,
+  and the step is sample -> ``x[nodes]`` -> ``forward_sampled`` -> loss on
+  the seeds. The evaluation stays the full-graph one;
+* **host features** (``train.host_features`` with a batch size; for graphs
+  whose features exceed the device's memory, e.g. a
+  ``Data(host_arrays=True)`` over memmaps): nothing graph- or feature-sized
+  moves to the device. :class:`~gnn_tpu_torch.train.host_loader.HostBatchLoader`
+  samples and gathers on the host, the [batch_nodes, F] slab goes over
+  through pinned memory, and the evaluation is neighbour-sampled through the
+  same loader, in chunks of the batch size.
+
+All of them share evaluation every ``eval_every`` epochs, metrics, early
+stopping on validation accuracy and checkpoints
+(``train.checkpoint_dir``, ``fit(resume=True)``). It trains every
+``model.name`` of the config: ``gcn``, ``gat`` (ignores the edge weights),
+``encoder_gcn`` (BatchNorm buffers: updated by the train step, read by the
+evaluation, returned in the middle slot), ``sage`` (scales its messages by
+the ``gcn_norm`` weights, as the JAX ``fit`` hands them to every model) and
+``gin`` (drops them). Multi-device partitions (``dist.num_parts > 1``, with
+or without sampling) and the degree-bucket relabelling
+(``train.reorder='true'``) are not ported yet: their settings raise
+``NotImplementedError`` (ROADMAP Queue 1 items 15 and 9).
 """
 
 from __future__ import annotations
 
+import json
 import time
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency
+from gnn_tpu_torch.graphs.convert import as_numpy
 from gnn_tpu_torch.graphs.data import Data
+from gnn_tpu_torch.graphs.sampling import NeighborSampler
 from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn.losses import accuracy, cross_entropy
 from gnn_tpu_torch.nn.state import buffer_state
 from gnn_tpu_torch.optim import SGD, Adam, AdamW, clip_by_global_norm
+from gnn_tpu_torch.train.checkpoint import Checkpointer
 from gnn_tpu_torch.train.config import Config
+from gnn_tpu_torch.train.host_loader import HostBatchLoader
 from gnn_tpu_torch.train.metrics import MetricLogger, Throughput
 
-__all__ = ["build_model", "build_optimizer", "fit", "evaluate"]
+__all__ = ["build_model", "build_optimizer", "build_step", "TrainStep", "fit", "evaluate"]
 
 _SPLITS = ("train", "val", "test")
 
@@ -80,16 +107,27 @@ def build_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
 
 
 def _check_supported(cfg: Config) -> None:
+    """The JAX ``fit``'s own guards first, with its errors; then what the
+    port does not run yet."""
     t = cfg.train
-    unported = {
-        "train.batch_size > 0 (sampled minibatches, ROADMAP Queue 1 item 13)": t.batch_size > 0,
-        "dist.num_parts > 1 (multi-device partitions, ROADMAP Queue 1 item 15)": cfg.dist.num_parts > 1,
-        "train.host_features (ROADMAP Queue 1 item 13)": t.host_features,
-        "train.checkpoint_dir (checkpointing, ROADMAP Queue 1 item 7)": bool(t.checkpoint_dir),
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet")
+    dp_sampled = cfg.dist.num_parts > 1 and t.batch_size > 0
+    if dp_sampled and t.batch_size % cfg.dist.num_parts:
+        raise ValueError(
+            f"train.batch_size={t.batch_size} must divide evenly over "
+            f"dist.num_parts={cfg.dist.num_parts} chips"
+        )
+    if t.host_features and not t.batch_size:
+        raise ValueError("train.host_features requires batch_size > 0")
+    if t.host_features and dp_sampled:
+        raise ValueError(
+            "train.host_features is the single-process host-gather path; it does not "
+            "combine with dist.num_parts"
+        )
+    if cfg.dist.num_parts > 1:
+        raise NotImplementedError(
+            "dist.num_parts > 1 (multi-device partitions and data-parallel sampling, "
+            "ROADMAP Queue 1 item 15) is not ported yet"
+        )
     reorder = str(t.reorder).lower()
     if reorder == "true":
         raise NotImplementedError(
@@ -98,6 +136,10 @@ def _check_supported(cfg: Config) -> None:
         )
     if reorder not in ("auto", "false", "cluster"):
         raise ValueError(f"unknown train.reorder '{t.reorder}'")
+
+
+def _split_masks(data: Data) -> dict:
+    return {split: getattr(data, f"{split}_mask") for split in _SPLITS}
 
 
 @torch.no_grad()
@@ -116,75 +158,270 @@ def evaluate(model: nn.Module, data: Data, adj: Adjacency) -> dict:
     return out
 
 
+class _HostFeed:
+    """Moves one [batch_nodes, F] slab a step from the loader's numpy to the
+    device through one pinned staging buffer, without waiting for the copy
+    (``non_blocking``). An event guards the buffer: the next slab is staged
+    only after the last copy has left it. On the CPU the slab is used as it
+    is. ``batch_ms`` and ``copy_ms`` hold the host clock's time of the last
+    sample + gather and of the last staging + enqueue."""
+
+    def __init__(self, loader: HostBatchLoader, device: torch.device):
+        self.loader, self.device = loader, device
+        self._stage = self._copied = None
+        self.batch_ms = self.copy_ms = 0.0
+
+    def __call__(self, seeds: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+        t0 = time.perf_counter()
+        feats, ys = self.loader.batch(seeds)
+        t1 = time.perf_counter()
+        feats, ys = torch.from_numpy(np.ascontiguousarray(feats)), torch.from_numpy(ys.astype(np.int64))
+        if self.device.type == "cuda":
+            if self._stage is None or self._stage.shape != feats.shape or self._stage.dtype != feats.dtype:
+                self._stage = torch.empty(feats.shape, dtype=feats.dtype, pin_memory=True)
+                self._copied = torch.cuda.Event()
+            self._copied.synchronize()
+            self._stage.copy_(feats)
+            feats = self._stage.to(self.device, non_blocking=True)
+            self._copied.record()
+            ys = ys.to(self.device)
+        self.batch_ms, self.copy_ms = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+        return feats, ys
+
+
+@torch.no_grad()
+def host_evaluate(model: nn.Module, feed: _HostFeed, adjs, masks: dict, batch_size: int) -> dict:
+    """Neighbour-sampled accuracy per split (the usual large-graph
+    approximation of inference), from minibatches of the training loader: no
+    device-resident x or adjacency at any point. Chunks of ``batch_size``
+    ids, the last one padded with node 0 and cut after the forward."""
+    was_training = model.training
+    model.eval()
+    out = {}
+    for split in _SPLITS:
+        mask = masks.get(split)
+        if mask is None:
+            continue
+        ids = np.nonzero(as_numpy(mask))[0]
+        if not len(ids):
+            continue
+        correct = 0
+        for lo in range(0, len(ids), batch_size):
+            chunk = ids[lo : lo + batch_size]
+            n = len(chunk)
+            padded = np.concatenate([chunk, np.zeros(batch_size - n, np.int64)])
+            feats, ys = feed(padded)
+            logits = model.forward_sampled(feats, adjs)
+            correct += int((logits[:n].argmax(-1) == ys[:n]).sum())
+        out[f"{split}_acc"] = correct / len(ids)
+    model.train(was_training)
+    return out
+
+
+def _random_state(dropout_gen, sample_gen, rng_np, loader) -> dict:
+    """What a resumed run needs beyond parameters, optimizer and buffers to
+    continue bit for bit: every random stream's position."""
+    state = {
+        "dropout_generator": dropout_gen.get_state(),
+        "seed_rng": json.dumps(rng_np.bit_generator.state),
+    }
+    if sample_gen is not None:
+        state["sampler_generator"] = sample_gen.get_state()
+    if loader is not None:
+        state["host_loader_seed"] = loader._seed
+    return state
+
+
+def _restore_random_state(state: dict, dropout_gen, sample_gen, rng_np, loader) -> None:
+    dropout_gen.set_state(state["dropout_generator"])
+    rng_np.bit_generator.state = json.loads(state["seed_rng"])
+    if sample_gen is not None:
+        sample_gen.set_state(state["sampler_generator"])
+    if loader is not None:
+        loader._seed = int(state["host_loader_seed"])
+
+
+@dataclass
+class TrainStep:
+    """One configuration's training step, as ``fit`` runs it: ``loss()``
+    draws what the step draws (seeds, neighbours, dropout) and returns the
+    step's loss, ready for ``backward``. The rest is what the step reads:
+    ``data`` and ``adj`` as they lie on the device (``adj`` None with
+    ``train.host_features``, whose ``data`` stays where it was), the hop
+    adjacencies of a sampled step, the host feed, and the random streams."""
+
+    loss: Callable[[], torch.Tensor]
+    data: Data
+    adj: Optional[Adjacency]
+    hop_adjs: Optional[list]
+    feed: Optional[_HostFeed]
+    dropout_gen: torch.Generator
+    sample_gen: Optional[torch.Generator]
+    rng_np: np.random.Generator
+
+
+def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) -> TrainStep:
+    """The training step of ``cfg`` for ``model`` (already on ``device``)
+    over ``data``: the one-time prep of ``fit`` (adjacency, sampler or host
+    loader, moved to the device or left on the host) and the step's loss. A
+    sampled step marks its sampling and its gather for a profiler with the
+    ranges ``sampled.sample`` and ``sampled.gather``."""
+    t = cfg.train
+    sampled = t.batch_size > 0
+    adj = sampler = sample_gen = feed = hop_adjs = None
+    if sampled:
+        if data.train_mask is None:
+            raise ValueError("train.batch_size > 0 draws its seeds from data.train_mask, which is None")
+        train_ids = np.nonzero(as_numpy(data.train_mask))[0]
+    if t.host_features:
+        # Nothing graph- or feature-sized moves to the device: the loader
+        # reads data's arrays where they are (memmaps included).
+        loader = HostBatchLoader(
+            as_numpy(data.edge_index), as_numpy(data.x), as_numpy(data.y), t.fanouts,
+            num_nodes=data.num_nodes, seed=t.seed,
+        )
+        feed = _HostFeed(loader, device)
+        hop_adjs = [a.to(device) for a in loader.adjacencies(t.batch_size)]
+    else:
+        # train.reorder='cluster': relabel the nodes into community-packed
+        # windows for the blocked layout (exact: GNNs are permutation-
+        # equivariant; features, labels and masks move with the nodes).
+        # Sampled minibatches index data.x by the original ids: no relabelling.
+        cluster = str(t.reorder).lower() == "cluster" and not sampled
+        adj = data.to_adjacency(norm="sym", reorder="cluster" if cluster else False)
+        if adj.perm is not None:
+            data = data.permute_nodes(adj.perm)
+        adj = adj.to(device)
+        data = data.to(device)
+        if sampled:
+            sampler = NeighborSampler(data, t.fanouts).to(device)
+            sample_gen = torch.Generator(device=device).manual_seed(t.seed + 2)
+            hop_adjs = sampler.adjacencies(t.batch_size)
+    dropout_gen = torch.Generator(device=device).manual_seed(t.seed + 1)
+    rng_np = np.random.default_rng(t.seed)
+
+    def loss() -> torch.Tensor:
+        if not sampled:
+            return cross_entropy(model(data.x, adj, generator=dropout_gen), data.y, data.train_mask)
+        seeds = rng_np.choice(train_ids, t.batch_size)
+        if feed is not None:
+            feats, ys = feed(seeds)
+            return cross_entropy(model.forward_sampled(feats, hop_adjs, generator=dropout_gen), ys)
+        with record_function("sampled.sample"):
+            seeds = torch.from_numpy(seeds).to(device)
+            nodes, adjs = sampler.sample(sample_gen, seeds)
+        with record_function("sampled.gather"):
+            feats, ys = data.x.index_select(0, nodes), data.y.index_select(0, seeds)
+        return cross_entropy(model.forward_sampled(feats, adjs, generator=dropout_gen), ys)
+
+    return TrainStep(loss, data, adj, hop_adjs, feed, dropout_gen, sample_gen, rng_np)
+
+
 def fit(
     cfg: Config,
     data: Data,
     *,
     model: Optional[nn.Module] = None,
     device="cuda",
+    resume: bool = False,
     verbose: bool = True,
 ) -> Tuple[nn.Module, Optional[Dict[str, torch.Tensor]], list]:
     """Train per config on ``device``. Returns (trained model, buffer state,
     history); the buffer state is ``buffer_state(model)`` for a model with
     buffers (EncoderGCN's running statistics) and None otherwise.
 
+    With ``train.checkpoint_dir`` a checkpoint is written after every
+    ``train.checkpoint_every``-th epoch that is also evaluated, and at the
+    end. ``resume=True`` restores the latest one (parameters, optimizer
+    state, buffers) and continues after its epoch. The port also saves and
+    restores the position of every random stream (dropout, sampler, seed
+    draw, the host loader's seed), so a resumed run continues an interrupted
+    one exactly; the JAX ``fit`` re-makes its streams from the seed. Early
+    stopping's best-so-far is not carried across a resume, as there.
+
     Early stopping restores the best epoch's *parameters* only, as the JAX
     ``fit`` does: the buffers stay those of the last epoch run.
 
     Each history entry holds the split accuracies, ``loss`` (of the epoch's
     step), ``edges_per_s`` since the start, and ``step_ms``: the wall time
-    from the start of the epoch's step to its loss on the host (a sync).
+    from the start of the epoch's step (a sampled step's seed draw,
+    sampling and gather included) to its loss on the host (a sync). With
+    ``train.host_features`` also ``host_batch_ms`` (the step's sample +
+    gather on the host) and ``host_copy_ms`` (staging the slab in pinned
+    memory and enqueueing its copy).
     """
     _check_supported(cfg)
+    t = cfg.train
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda') needs a CUDA device; none is available")
     if model is None:
         model = build_model(
             cfg, data.num_features, int(data.y.max()) + 1,
-            torch.Generator().manual_seed(cfg.train.seed),
+            torch.Generator().manual_seed(t.seed),
+        )
+    sampled = t.batch_size > 0
+    if sampled and not hasattr(model, "forward_sampled"):
+        raise ValueError(
+            f"train.batch_size > 0 needs a model with forward_sampled (sage, gat, gin); "
+            f"{type(model).__name__} has none"
         )
     model = model.to(device)
     model.train()
-    # train.reorder='cluster': relabel the nodes into community-packed
-    # windows for the blocked layout (exact: GNNs are permutation-
-    # equivariant; features, labels and masks move with the nodes).
-    reorder = "cluster" if str(cfg.train.reorder).lower() == "cluster" else False
-    adj = data.to_adjacency(norm="sym", reorder=reorder)
-    if adj.perm is not None:
-        data = data.permute_nodes(adj.perm)
-    adj = adj.to(device)
-    data = data.to(device)
+    masks = _split_masks(data)
+    train_step = build_step(cfg, data, model, device)
+    data, adj, feed, hop_adjs = train_step.data, train_step.adj, train_step.feed, train_step.hop_adjs
+    loader = feed.loader if feed is not None else None
+    dropout_gen, sample_gen, rng_np = train_step.dropout_gen, train_step.sample_gen, train_step.rng_np
     params = list(model.parameters())
     opt = build_optimizer(cfg, params)
-    dropout_gen = torch.Generator(device=device).manual_seed(cfg.train.seed + 1)
-    logger = MetricLogger(cfg.train.log_file, echo=verbose)
+    logger = MetricLogger(t.log_file, echo=verbose)
+
+    ckpt, start_epoch = None, 0
+    if t.checkpoint_dir:
+        ckpt = Checkpointer(t.checkpoint_dir)
+        if resume and ckpt.latest_step() is not None:
+            _, _, _, extra = ckpt.restore(model, opt, buffer_state(model) or None)
+            if extra and "random_state" in extra:
+                _restore_random_state(extra["random_state"], dropout_gen, sample_gen, rng_np, loader)
+            start_epoch = int(ckpt.latest_step())
+
+    def save_checkpoint(step: int) -> None:
+        extra = {"random_state": _random_state(dropout_gen, sample_gen, rng_np, loader)}
+        ckpt.save(step, model, opt, buffer_state(model) or None, extra)
 
     history = []
-    best_val, best_state, patience_left = -1.0, None, cfg.train.patience
+    best_val, best_state, patience_left = -1.0, None, t.patience
     thr = Throughput(data.num_edges)
     thr.start()
-    for epoch in range(cfg.train.epochs):
+    for epoch in range(start_epoch, t.epochs):
         t_step = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        loss = cross_entropy(model(data.x, adj, generator=dropout_gen), data.y, data.train_mask)
+        loss = train_step.loss()
         loss.backward()
         if cfg.optim.grad_clip > 0:
             clip_by_global_norm(params, cfg.optim.grad_clip)
         opt.step()
         thr.step()
-        if (epoch + 1) % cfg.train.eval_every == 0 or epoch == cfg.train.epochs - 1:
+        if (epoch + 1) % t.eval_every == 0 or epoch == t.epochs - 1:
             loss_value = loss.item()  # syncs the device
             step_ms = (time.perf_counter() - t_step) * 1e3
             edges_per_s = thr.edges_per_s
-            metrics = evaluate(model, data, adj)
+            if feed is not None:
+                host_ms = dict(host_batch_ms=feed.batch_ms, host_copy_ms=feed.copy_ms)
+                metrics = host_evaluate(model, feed, hop_adjs, masks, t.batch_size)
+                metrics.update(host_ms)
+            else:
+                metrics = evaluate(model, data, adj)
             metrics.update(loss=loss_value, edges_per_s=edges_per_s, step_ms=step_ms)
             logger.log(epoch + 1, **metrics)
             history.append(metrics)
+            if ckpt and t.checkpoint_every and (epoch + 1) % t.checkpoint_every == 0:
+                save_checkpoint(epoch + 1)
             val = metrics.get("val_acc")
-            if cfg.train.patience and val is not None:
+            if t.patience and val is not None:
                 if val > best_val:
-                    best_val, patience_left = val, cfg.train.patience
+                    best_val, patience_left = val, t.patience
                     best_state = {k: p.detach().clone() for k, p in model.named_parameters()}
                 else:
                     patience_left -= 1
@@ -195,5 +432,8 @@ def fit(
         with torch.no_grad():
             for name, p in model.named_parameters():
                 p.copy_(best_state[name])
+    if ckpt:
+        save_checkpoint(t.epochs)
+        ckpt.close()
     logger.close()
     return model, buffer_state(model) or None, history

@@ -413,3 +413,124 @@ def test_k1_without_weights_at_f128_on_card(cuda_device, dtype):
     _check_deterministic(csr_spmm, csr_spmm_plain, (adj.row_ptr, adj.src, None, x), dtype)
     _check_deterministic(csr_spmm, csr_spmm_plain, (adj.t_row_ptr, adj.t_col, None, x), dtype)
     assert csr_spmm.launches - before == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("F", [8, 40, 128, 256])
+@pytest.mark.parametrize("n_dst,fanout", [(1, 1), (1, 15), (1024, 1), (1024, 5), (1024, 15)])
+def test_kernels_on_sampled_hop_csrs_on_card(cuda_device, dtype, F, n_dst, fanout):
+    """K1 (w null), K2 and K3 over a neighbour-sampled hop's bipartite CSR
+    (n_dst rows of exactly ``fanout`` edges over n_dst * (1 + fanout)
+    sources, ``col`` contiguous from n_dst) and over its transpose (n_dst
+    leading rows without an edge, then one edge a row): against the plain
+    versions, bitwise on a repeat, output shapes from ``row_ptr``."""
+    from gnn_tpu_torch.graphs.sampling import _hop_adjacency
+
+    adj = _hop_adjacency(n_dst, fanout).to(cuda_device)
+    n_src, e = adj.num_src_nodes, adj.num_edges
+    make = lambda *shape: torch.randn(*shape, device=cuda_device).to(dtype)
+    x, g, msg = make(n_src, F), make(n_dst, F), make(e, F)
+    _check_deterministic(csr_spmm, csr_spmm_plain, (adj.row_ptr, adj.src, None, x), dtype)
+    _check_deterministic(csr_spmm, csr_spmm_plain, (adj.t_row_ptr, adj.t_col, None, g), dtype)
+    _check_deterministic(csr_spmm, csr_spmm_plain, (adj.t_row_ptr, adj.t_perm, None, msg), dtype)
+    _check_deterministic(segment_sum_csr, segment_sum_csr_plain, (adj.row_ptr, msg), dtype)
+    assert tuple(csr_spmm(adj.row_ptr, adj.src, None, x).shape) == (n_dst, F)
+    dx = csr_spmm(adj.t_row_ptr, adj.t_col, None, g)
+    assert tuple(dx.shape) == (n_src, F) and not dx[:n_dst].any()  # the prefix sends nothing
+    H = 8 if F % 8 == 0 else 1
+    w = torch.rand(e, H, device=cuda_device)
+    xh, gh = x.view(n_src, H, F // H), g.view(n_dst, H, F // H)
+    _check_deterministic(csr_spmm_heads, csr_spmm_heads_plain, (adj.row_ptr, adj.src, w, xh), dtype)
+    _check_deterministic(
+        csr_spmm_heads, csr_spmm_heads_plain, (adj.t_row_ptr, adj.t_col, w, gh, adj.t_perm), dtype
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sage", "sage-max", "gat", "gin"])
+def test_forward_sampled_on_card_matches_cpu(cuda_device, name):
+    """One node list through ``forward_sampled`` on the card and on the CPU:
+    logits and parameter gradients (float32, rtol=atol=1e-4), with the
+    kernels launched as the hops ask: SAGE mean and GIN K1 2 forward + 1 dx
+    (the first hop's input is gathered data); GAT, per hop, K3 forward and
+    dh (the first hop's too: its input is ``lin``'s output), K2 for the
+    denominator and for the destination gather's VJP, K1 for the source
+    gather's VJP."""
+    from gnn_tpu_torch.graphs import NeighborSampler
+    from gnn_tpu_torch.models import GAT, GIN, GraphSAGE
+
+    data = tg.stochastic_block_model(num_nodes=300, num_classes=4, feature_dim=12, seed=1)
+    make = {
+        "sage": lambda gen: GraphSAGE(12, 32, 4, dropout=0.0, generator=gen),
+        "sage-max": lambda gen: GraphSAGE(12, 32, 4, aggr="max", dropout=0.0, generator=gen),
+        "gat": lambda gen: GAT(12, 8, 4, heads=4, dropout=0.0, generator=gen),
+        "gin": lambda gen: GIN(12, 32, 4, num_layers=2, generator=gen),
+    }[name]
+    want = {"sage": (3, 0, 0), "sage-max": (0, 0, 0), "gat": (2, 4, 4), "gin": (3, 0, 0)}[name]
+    sampler = NeighborSampler(data, [5, 3])
+    nodes, adjs = sampler.sample(torch.Generator().manual_seed(0), torch.arange(64))
+    cpu = make(torch.Generator().manual_seed(0))
+    gpu = make(None).to(cuda_device)
+    gpu.load_state_dict(cpu.state_dict())
+    on_card = sampler.to(cuda_device)
+    before = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    out_gpu = gpu.forward_sampled(data.x[nodes].to(cuda_device), on_card.adjacencies(64))
+    out_gpu.square().sum().backward()
+    after = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    out_cpu = cpu.forward_sampled(data.x[nodes], adjs)
+    out_cpu.square().sum().backward()
+    torch.testing.assert_close(out_gpu.cpu(), out_cpu, rtol=1e-4, atol=1e-4)
+    for (pname, p_gpu), p_cpu in zip(gpu.named_parameters(), cpu.parameters()):
+        if p_cpu.requires_grad:
+            torch.testing.assert_close(p_gpu.grad.cpu(), p_cpu.grad, rtol=1e-4, atol=1e-4, msg=pname)
+
+
+@pytest.mark.gpu
+def test_sampler_on_card_draws_in_neighbours_without_leaving_it(cuda_device):
+    from gnn_tpu_torch.graphs import NeighborSampler
+
+    data = tg.stochastic_block_model(num_nodes=300, num_classes=4, feature_dim=4, seed=1)
+    sampler = NeighborSampler(data, [6, 4]).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    seeds = torch.arange(50, device=cuda_device)
+    sampler.adjacencies(50)  # built on the host and moved once, before the steps
+    torch.cuda.set_sync_debug_mode("error")  # a host round trip inside sample() raises
+    try:
+        nodes, adjs = sampler.sample(gen, seeds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert nodes.device.type == "cuda" and all(a.row_ptr.device.type == "cuda" for a in adjs)
+    assert nodes.shape[0] == 50 * 7 * 5 and torch.equal(nodes[:50], seeds)
+    ei = data.edge_index.numpy()
+    in_nbrs = [set(ei[0][ei[1] == d].tolist()) or {d} for d in range(300)]
+    nodes = nodes.cpu()
+    for adj in adjs:
+        src, dst = nodes[adj.src.cpu().long()].tolist(), nodes[adj.dst.cpu().long()].tolist()
+        assert all(s in in_nbrs[d] for s, d in zip(src, dst))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+def test_spmm_coo_card_matches_cpu(cuda_device, weighted):
+    """The plain gather + index_add on both devices: no kernel launch."""
+    n, e = 500, 4000
+    rng = np.random.default_rng(0)
+    dst = np.sort(rng.integers(0, n - 20, e))  # the last 20 rows stay empty
+    src = rng.integers(0, n, e)
+    w = rng.random(e).astype(np.float32) if weighted else None
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    outs = []
+    for device in ("cpu", cuda_device):
+        tx = torch.from_numpy(x).to(device).requires_grad_()
+        tw = None if w is None else torch.from_numpy(w).to(device).requires_grad_()
+        before = csr_spmm.launches
+        out = tops.spmm_coo(torch.from_numpy(src).to(device), torch.from_numpy(dst).to(device), tx, n, tw,
+                            indices_are_sorted=True)
+        assert csr_spmm.launches == before
+        out.square().sum().backward()
+        outs.append((out.detach().cpu(), tx.grad.cpu(), None if tw is None else tw.grad.cpu()))
+    for got, want in zip(outs[1], outs[0]):
+        if want is not None:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -229,7 +229,9 @@ def test_gat_matches_jax(rng, num_layers):
 
 def test_gat_unported_forms_raise():
     t = GAT(4, 4, 2, heads=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # forward_sampled is ported: without one adjacency per conv it raises
+    # the JAX package's error (gnn_tpu/models/gat.py:86-87)
+    with pytest.raises(ValueError, match="need 2 hop adjacencies"):
         t.forward_sampled(torch.zeros(3, 4), [])
     with pytest.raises(NotImplementedError, match="item 15"):
         t.convs[0](torch.zeros(3, 4), object())

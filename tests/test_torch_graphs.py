@@ -156,15 +156,17 @@ def test_data_to_adjacency_matches(rng):
     assert moved.num_edges == ta.num_edges and moved.device.type == "cpu"
 
 
-def test_unported_options_raise(rng):
+def test_unported_options_raise(rng, tmp_path):
     ei, n = _random_edges(rng)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tg.build_adjacency(ei, num_nodes=n, reorder=True)
     with pytest.raises(NotImplementedError, match="CSR only"):
         tg.build_adjacency(ei, num_nodes=n, layout="ell")
-    for name in ("cora", "ogbn-arxiv"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tg.load_dataset(name)
+    # the file loaders are ported (local files only): without the files they
+    # name the layout they expect, as the JAX package's do
+    for name, layout in (("cora", "ind.cora"), ("ogbn-arxiv", "standard OGB extracted layout")):
+        with pytest.raises(FileNotFoundError, match=layout):
+            tg.load_dataset(name, str(tmp_path))
 
 
 def test_data_checks_and_npz_round_trip(tmp_path):
