@@ -38,10 +38,23 @@ launch them at: K1 with a null weight forward on each hop of fanouts [15,
 10, 5] (F = 128, 256, 256) and of the host path's [10, 5] (F = 128, 256),
 transposed on all but the outermost; K3 forward and transposed, K2 and K1
 over ``col = t_perm`` on both hops of the GAT's [10, 5], at (8, 32) on the
-outer and (1, 40) on the inner.
+outer and (1, 40) on the inner. Phase 1-relabel builds the power-law graph
+again with ``reorder=True``, the degree-bucket node order that ``fit``'s
+default ``train.reorder='auto'`` trains in, and holds K1 forward and dx at F
+in {40, 128, 256} and with a null weight at F=128, K3 at (8, 32) and K2 at
+[E, 8] over that CSR against their plain versions, a second call and the
+library, each row printed beside the same call's row in id order; it also
+scores one K1 call with ``utils.profiling`` (``time_fn``,
+``Roofline(chip=H100)``). Phase 1-edge-agg holds ``ops.edge_agg`` there:
+``edge_aggregate`` over the identity positions (one K2 launch) and over
+``t_perm`` (one K1 launch) at [E, 8] and [E, 1], and ``edge_aggregate_max``
+against ``segment_max``.
 Phase 2 trains the port's full-graph GCN (3 layers, hidden 256, 40
 classes) for 5 epochs on the power-law graph through
-``gnn_tpu_torch.train.fit``;
+``gnn_tpu_torch.train.fit`` under the default order (relabelled), then
+again with ``train.reorder`` 'false' (ids kept) and 'true', printing the
+step time of each order; every full-graph phase prints whether ``fit``'s
+adjacency carried a ``perm`` and checks it;
 phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
 classes) for 5 epochs there; phase 2-cluster trains the GCN on the clustered
 graph twice with the same seeds, with ``train.reorder='cluster'`` (the
@@ -60,19 +73,28 @@ class, so the loss must fall), the sampler, features and hop adjacencies on
 the card; phase 2-host trains GraphSAGE 2 x 256 for 10 steps with
 ``train.host_features`` on a ``Data(host_arrays=True)``: sampling and the
 feature gather on the host, one pinned slab a step to the card, the
-evaluation neighbour-sampled through the same loader. Phase 3 checks the kernel
+evaluation neighbour-sampled through the same loader. Phase 2-stream runs
+``graphs/streaming.py``: ``streaming_spmm`` and ``streaming_spmm_grad`` on
+the power-law graph in 3 chunks at F=128 (weighted and with ``norm``)
+against resident K1 forward and dx, one K1 launch a chunk; then, timed, a
+generated graph of about 34 M edges whose edge list stays on the host
+(chunks, edges/s, the host's pack ms, the copies' and K1's ms a chunk, the
+copies' GB/s beside a pinned copy's). Phase 3 checks the kernel
 path against the CPU path on a small graph for GCN, GAT, the blocked GCN,
 EncoderGCN (with its BatchNorm buffers), GraphSAGE (mean and max) and GIN,
 trains the Kipf GCN (on the CSR and on the blocked layout) and the GAT
 recipes on ``cora_like`` into their accuracy bands, and runs the CLI for
 every model and for SGD with clipping; it also holds ``forward_sampled``
 on the card to the CPU for one node list, runs the CLI on sampled
-minibatches, and checks that a run stopped at a checkpoint and resumed
-equals an uninterrupted one.
+minibatches and with ``--train.reorder`` 'true' and 'auto', checks that a
+run stopped at a checkpoint and resumed equals an uninterrupted one, and
+runs ``gnn_tpu_torch.entry.entry()``'s forward on the card against the CPU.
 
 The next-to-last line of standard output is a JSON object with each
 kernel's launches (in all, and per training step of each path, the
-evaluation's launches left out), error, times, bound and library time; the last is
+evaluation's launches left out), error, times, bound and library time (times
+over the relabelled graph; ``ms_id_order`` is the same call in id order, the
+row earlier versions of this line reported); the last is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the script exits
 non-zero and prints no result. It needs a CUDA device; there is no CPU path.
 """
@@ -95,6 +117,7 @@ from gnn_tpu_torch.graphs import Data, build_adjacency, gcn_norm, power_law, to_
 from gnn_tpu_torch.graphs.blocked import _diag_product, blocked_matvec, blocked_matvec_plain
 from gnn_tpu_torch.graphs.generate import clustered_power_law, cora_like, stochastic_block_model
 from gnn_tpu_torch.graphs.sampling import NeighborSampler, hop_adjacencies
+from gnn_tpu_torch.graphs.streaming import EdgeStream, streaming_spmm, streaming_spmm_grad
 from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
@@ -102,8 +125,10 @@ from gnn_tpu_torch.ops.cuda import _build, bounds
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
 from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain
+from gnn_tpu_torch.ops.edge_agg import edge_aggregate, edge_aggregate_max
 from gnn_tpu_torch.train import Config, fit
 from gnn_tpu_torch.train import cli, loop
+from gnn_tpu_torch.utils.profiling import H100, Roofline, time_fn
 
 N_NODES = 169_343  # ogbn-arxiv
 E_DIRECTED = 1_157_799
@@ -119,6 +144,11 @@ BLOCKED_WIDTHS = (256, 40)
 # (3 layers) and of the GAT and host-feature (2 layers) paths
 SAMPLED_BATCH = 1024
 SAGE_FANOUTS, GAT_FANOUTS = (15, 10, 5), (10, 5)
+# Phase 2-stream: 3 chunks of the arxiv-scale graph at F=128, then the timed
+# graph whose edge list stays on the host (halved while its host prep takes
+# more than STREAM_PREP_S seconds)
+STREAM_F, STREAM_CHUNK, STREAM_TIMED_CHUNK = 128, 1 << 20, 1 << 22
+STREAM_NODES, STREAM_DIRECTED_EDGES, STREAM_PREP_S = 2_000_000, 16_000_000, 60.0
 # float32: hub rows sum thousands of terms in another order than the plain
 # version's atomics. bfloat16: the plain version sums the same bf16 inputs
 # in float32 and rounds once, so the two differ by at most one bf16 rounding
@@ -665,6 +695,134 @@ def phase1_hop(dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+def id_order_row(results, name: str, what: str, **shape) -> dict:
+    """The float32 row of ``name`` in id order (phases 1, 1-gat, 1-unweighted)
+    with this ``what`` and shape."""
+    return next(
+        r for r in results[name]["rows"]
+        if r["dtype"] == "torch.float32" and r["what"] == what and r.get("graph") is None
+        and all(r.get(k) == v for k, v in shape.items())
+    )
+
+
+def phase1_relabel(adj, dev, results) -> None:
+    """The kernels over the degree-bucket relabelled CSR of the power-law
+    graph, the node order fit's default ``train.reorder='auto'`` trains in:
+    K1 forward and dx at the GCN's widths and with a null weight at F=128,
+    K3 forward at (8, 32), K2 at [E, 8]; float32, each against its plain
+    version, a second call and ``torch.sparse.mm`` / ``torch.segment_reduce``
+    over the same relabelled CSR. Each row is then printed beside the row of
+    the same call in id order from phase 1, 1-gat or 1-unweighted."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, e = adj.num_dst_nodes, adj.num_edges
+    dtype = torch.float32
+    a_fwd = sparse_csr(adj.row_ptr, adj.src, adj.weight, n)
+    a_t = sparse_csr(adj.t_row_ptr, adj.t_col, adj.t_weight, n)
+    ones = torch.ones(e, device=dev)
+    a_ones = sparse_csr(adj.row_ptr, adj.src, ones, n)
+    compared = []
+    for F in WIDTHS:
+        x = torch.randn(n, F, generator=gen, device=dev)
+        g = torch.randn(n, F, generator=gen, device=dev)
+        bound = bounds.csr_spmm_bound(n, n, e, F, 4)
+        cases = [
+            ("csr_spmm", "fwd A@x", csr_spmm, csr_spmm_plain, (adj.row_ptr, adj.src, adj.weight, x), bound,
+             lambda: torch.sparse.mm(a_fwd, x)),
+            ("csr_spmm", "bwd dx=A^T g", csr_spmm, csr_spmm_plain, (adj.t_row_ptr, adj.t_col, adj.t_weight, g), bound,
+             lambda: torch.sparse.mm(a_t, g)),
+        ]
+        if F == 128:
+            xu = torch.rand(n, F, generator=gen, device=dev) / 256  # as phase1_unweighted's inputs
+            cases.append(("csr_spmm", "fwd A@x, w null", csr_spmm, csr_spmm_plain, (adj.row_ptr, adj.src, None, xu),
+                          bounds.csr_spmm_bound(n, n, e, F, 4, weighted=False), lambda: torch.sparse.mm(a_ones, xu)))
+        check_cases(results, cases, f"relabelled F={F} float32", dtype, F=F, graph="relabelled")
+        compared += [(name, what, dict(F=F)) for name, what, *_ in cases]
+        del x, g
+    H, F = GAT_HEADS[0]
+    ex, alpha = attention_weights(adj, H, gen)
+    x = torch.randn(n, H, F, generator=gen, device=dev)
+    a_heads = heads_csr(adj.row_ptr, adj.src, alpha, n)
+    check_cases(results, (
+        ("csr_spmm_heads", "fwd num", csr_spmm_heads, csr_spmm_heads_plain, (adj.row_ptr, adj.src, alpha, x),
+         bounds.csr_spmm_heads_bound(n, n, e, H, F, 4), lambda: heads_product(a_heads, x)),
+        ("segment_sum_csr", f"den [E,{H}]", segment_sum_csr, segment_sum_csr_plain, (adj.row_ptr, ex),
+         bounds.segment_sum_bound(n, e, H, 4),
+         lambda: torch.segment_reduce(ex, "sum", offsets=adj.row_ptr, axis=0, unsafe=True)),
+    ), f"relabelled H={H} F={F} float32", dtype, H=H, F=F, graph="relabelled")
+    compared += [("csr_spmm_heads", "fwd num", dict(H=H, F=F)), ("segment_sum_csr", f"den [E,{H}]", dict(H=H))]
+    log("phase1-relabel bitwise repeat: every K1, K3 and K2 row equal")
+    for name, what, shape in compared:
+        new = next(r for r in reversed(results[name]["rows"]) if r.get("graph") == "relabelled"
+                   and r["what"] == what and all(r.get(k) == v for k, v in shape.items()))
+        old = id_order_row(results, name, what, **shape)
+        log(f"phase1-relabel {name:15s} {what:16s} {json.dumps(shape)}: relabelled kernel_ms={new['ms']:.4f} "
+            f"library_ms={new['library_ms']:.4f} plain_ms={new['plain_ms']:.4f} | id order kernel_ms={old['ms']:.4f} "
+            f"library_ms={old['library_ms']:.4f} plain_ms={old['plain_ms']:.4f} | bound_ms={new['bound_ms']:.4f} "
+            f"noreuse_ms={new['noreuse_ms']:.4f} (id order {old['noreuse_ms']:.4f}); "
+            f"relabelled / id order {new['ms'] / old['ms']:.3f}")
+    del ex, alpha, x, a_heads, a_fwd, a_t, a_ones
+    torch.cuda.empty_cache()
+
+
+def profiling_on_card(adj, dev) -> None:
+    """``utils.profiling``: ``time_fn`` (CUDA events) times one K1 forward at
+    F=256 over the relabelled CSR and ``Roofline(chip=H100)`` scores it; its
+    memory time must equal ``ops/cuda/bounds.py``'s compulsory bound."""
+    n, e, F = adj.num_dst_nodes, adj.num_edges, 256
+    x = torch.randn(n, F, device=dev)
+    secs = time_fn(csr_spmm, adj.row_ptr, adj.src, adj.weight, x, iters=20, warmup=3)
+    roof = Roofline(chip=H100).add_read(
+        ((n + 1,), np.int32), ((e,), np.int32), ((e,), np.float32), ((n, F), np.float32))
+    roof.add_write(((n, F), np.float32))
+    bound = bounds.csr_spmm_bound(n, n, e, F, 4)
+    if not math.isclose(roof.memory_time_s * 1e3, bound.bytes_ms, rel_tol=1e-9):
+        raise AssertionError(f"Roofline memory time {roof.memory_time_s * 1e3} ms != bound {bound.bytes_ms} ms")
+    log(f"phase1-relabel utils.profiling: time_fn K1 F=256 fwd {secs * 1e3:.4f} ms; Roofline(chip={H100.name}) "
+        f"memory time {roof.memory_time_s * 1e3:.4f} ms, fraction of peak {roof.fraction_of_peak(secs, 'float32'):.3f}")
+
+
+def phase1_edge_agg(adj, dev, results) -> None:
+    """``ops.edge_agg`` over the relabelled adjacency's edge-position CSRs:
+    ``edge_aggregate`` over the identity positions (``edge_agg``, one K2
+    launch) and over ``t_perm`` (``t_edge_agg``, one K1 launch with a null
+    weight) at [E, 8] and [E, 1], against the plain versions, a second call
+    and the library, with the launches of one call counted; and
+    ``edge_aggregate_max`` (plain torch on every device) against
+    ``segment_max`` by the same nodes, bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, e = adj.num_dst_nodes, adj.num_edges
+    a_perm = sparse_csr(adj.t_row_ptr, adj.t_perm, torch.ones(e, device=dev), e)
+    for H in (8, 1):
+        msg = torch.randn(e, H, generator=gen, device=dev) * adj.weight[:, None]
+        plain_fwd = lambda m, lay: segment_sum_csr_plain(lay.row_ptr, m)
+        plain_t = lambda m, lay: csr_spmm_plain(lay.row_ptr, lay.positions, None, m)
+        cases = (
+            ("segment_sum_csr", f"edge_aggregate [E,{H}]", edge_aggregate, plain_fwd, (msg, adj.edge_agg),
+             bounds.segment_sum_bound(n, e, H, 4),
+             lambda: torch.segment_reduce(msg, "sum", offsets=adj.row_ptr, axis=0, unsafe=True)),
+            ("csr_spmm", f"edge_aggregate t_perm [E,{H}]", edge_aggregate, plain_t, (msg, adj.t_edge_agg),
+             bounds.csr_spmm_bound(n, e, e, H, 4, weighted=False), lambda: torch.sparse.mm(a_perm, msg)),
+        )
+        for name, what, _, _, args, _, _ in cases:
+            before = read_counters()
+            edge_aggregate(*args)
+            took = {k: v - before[k] for k, v in read_counters().items() if v != before[k]}
+            log(f"phase1-edge-agg {what}: one call launched {took}")
+            if took != {name: 1}:
+                raise AssertionError(f"phase1-edge-agg {what}: launched {took}, not {name} once")
+        check_cases(results, cases, f"relabelled H={H} float32", torch.float32, H=H, graph="relabelled")
+        for lay, ids, label in ((adj.edge_agg, adj.dst, "by destination"), (adj.t_edge_agg, adj.src, "by source")):
+            got = edge_aggregate_max(msg, lay)
+            if not torch.equal(got, segment_max(msg, ids, n)):
+                raise AssertionError(f"phase1-edge-agg edge_aggregate_max [E,{H}] {label} differs from segment_max")
+            log(f"phase1-edge-agg edge_aggregate_max [E,{H}] {label}: equals segment_max bit for bit, "
+                f"{int(torch.isneginf(got[:, 0]).sum())} empty rows -inf, "
+                f"ms={time_ms(lambda: edge_aggregate_max(msg, lay)):.4f} (plain torch, no kernel)")
+        del msg
+    del a_perm
+    torch.cuda.empty_cache()
+
+
 def arxiv_scale_data(edges: np.ndarray, signal: float = 0.0, host_arrays: bool = False) -> Data:
     """Seeded 128-dim features, 40 classes and a 54/18/28 % split (the
     proportions of ogbn-arxiv) on the arxiv-scale graph. ``signal`` adds that
@@ -757,7 +915,9 @@ def read_counters() -> dict:
     return {name: counter.launches for name, counter in COUNTERS.items()}
 
 
-def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None, falling: bool = False) -> tuple:
+def train_phase(
+    label: str, cfg: Config, data: Data, dev, want: dict, check=None, falling: bool = False, want_perm=None
+) -> tuple:
     """Train through ``fit`` with every launch counter at 0 just before and
     read just after; check finite losses (``falling``: the mean of the last
     quarter below that of the first) and the launches per kernel. Returns
@@ -765,9 +925,12 @@ def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None
     also read around each of ``fit``'s evaluations (full-graph or
     neighbour-sampled on the host), whose launches are taken off before
     dividing by the epochs. ``check(model, state, history)`` looks at what
-    ``fit`` returned."""
+    ``fit`` returned. The step that ``fit`` builds is captured too, to
+    print whether its adjacency was relabelled (``perm`` present) and, where
+    ``want_perm`` is given, to check it."""
     in_eval = dict.fromkeys(COUNTERS, 0)
     originals = {"evaluate": loop.evaluate, "host_evaluate": loop.host_evaluate}
+    build_step, steps = loop.build_step, []
 
     def counted(evaluate):
         def run(*args):
@@ -778,16 +941,28 @@ def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None
             return out
         return run
 
+    def captured(*args):
+        steps.append(build_step(*args))
+        return steps[-1]
+
     for counter in COUNTERS.values():
         counter.launches = 0
     for name, evaluate in originals.items():
         setattr(loop, name, counted(evaluate))
+    loop.build_step = captured
     try:
         model, state, history = fit(cfg, data, device=dev, verbose=False)
     finally:
         for name, evaluate in originals.items():
             setattr(loop, name, evaluate)
+        loop.build_step = build_step
     launches = read_counters()
+    adj = steps[0].adj
+    perm = adj is not None and adj.perm is not None
+    log(f"{label} train.reorder={cfg.train.reorder}: perm {'present' if perm else 'absent'}"
+        + ("" if adj is None else f", layout {adj.layout}"))
+    if want_perm is not None and perm != want_perm:
+        raise AssertionError(f"{label}: perm {'present' if perm else 'absent'}, expected the opposite")
     if check is not None:
         check(model, state, history)
     per_step = {name: (launches[name] - in_eval[name]) / cfg.train.epochs for name in COUNTERS}
@@ -797,7 +972,8 @@ def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None
     logged = cfg.train.epochs // cfg.train.eval_every
     log(f"{label} losses per logged step: {losses}")
     log(f"{label} step ms per logged step (synced): {step_ms}")
-    log(f"{label} median step ms over logged steps 2-{logged}: {float(np.median(step_ms[1:])):.3f}")
+    median_ms = float(np.median(step_ms[1:]))
+    log(f"{label} median step ms over logged steps 2-{logged}: {median_ms:.3f}")
     log(f"{label} launches: {launches} (expected {want}); per training step: {per_step}")
     if len(losses) != logged or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: expected {logged} finite losses, got {losses}")
@@ -806,7 +982,7 @@ def train_phase(label: str, cfg: Config, data: Data, dev, want: dict, check=None
         raise AssertionError(f"{label}: the loss did not fall: {losses}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
-    return launches, per_step
+    return launches, per_step, median_ms
 
 
 def phase2(data: Data, dev) -> tuple:
@@ -815,7 +991,23 @@ def phase2(data: Data, dev) -> tuple:
     Linear output) and once a layer in the evaluation."""
     cfg = arxiv_gcn_config()
     n = cfg.train.epochs * cfg.model.num_layers
-    return train_phase("phase2", cfg, data, dev, k1_only(3 * n))
+    return train_phase("phase2", cfg, data, dev, k1_only(3 * n), want_perm=True)
+
+
+def phase2_orders(data: Data, dev, auto_ms: float) -> dict:
+    """The GCN of phase 2 again with ``train.reorder='false'`` (the node ids
+    kept) and ``'true'`` (the relabelling forced), so that both orders have
+    a ``step_ms`` from this run; the launches do not depend on the order."""
+    n = arxiv_gcn_config().train.epochs * arxiv_gcn_config().model.num_layers
+    out, ms = {}, {"auto": auto_ms}
+    for reorder, perm in (("false", False), ("true", True)):
+        cfg = arxiv_gcn_config()
+        cfg.train.reorder = reorder
+        out[reorder] = train_phase(f"phase2 reorder={reorder}", cfg, data, dev, k1_only(3 * n), want_perm=perm)
+        ms[reorder] = out[reorder][2]
+    log(f"phase2 GCN 3 x 256 median step ms by train.reorder: {json.dumps(ms)}; "
+        f"relabelled (auto) / id order (false) {ms['auto'] / ms['false']:.3f}")
+    return out
 
 
 def phase2_gat(data: Data, dev) -> tuple:
@@ -826,7 +1018,7 @@ def phase2_gat(data: Data, dev) -> tuple:
     cfg = arxiv_gat_config()
     n = cfg.train.epochs * cfg.model.num_layers
     want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "blocked_matvec": 0}
-    return train_phase("phase2-gat", cfg, data, dev, want)
+    return train_phase("phase2-gat", cfg, data, dev, want, want_perm=True)
 
 
 def k1_only(count: int) -> dict:
@@ -852,7 +1044,7 @@ def phase2_encoder(data: Data, dev) -> tuple:
             f"convs.0 running_var mean {state['convs.0.batch_norm.running_var'].mean().item():.4f}")
 
     want = k1_only(3 * cfg.train.epochs * cfg.model.num_layers)
-    return train_phase("phase2-encoder", cfg, data, dev, want, check)
+    return train_phase("phase2-encoder", cfg, data, dev, want, check, want_perm=True)
 
 
 def first_layer_free(cfg: Config) -> dict:
@@ -868,14 +1060,14 @@ def phase2_sage(data: Data, dev) -> tuple:
     """GraphSAGE 3 x 256 (mean): K1 with the gcn_norm weights at F = 128,
     256, 256, then the division by the edge counts in plain torch."""
     cfg = arxiv_sage_config()
-    return train_phase("phase2-sage", cfg, data, dev, first_layer_free(cfg))
+    return train_phase("phase2-sage", cfg, data, dev, first_layer_free(cfg), want_perm=True)
 
 
 def phase2_gin(data: Data, dev) -> tuple:
     """GIN 3 x 256 under SGD with gradient clipping: K1 with a null weight
     at F = 128, 256, 256."""
     cfg = arxiv_gin_config()
-    return train_phase("phase2-gin", cfg, data, dev, first_layer_free(cfg))
+    return train_phase("phase2-gin", cfg, data, dev, first_layer_free(cfg), want_perm=True)
 
 
 def phase2_sampled_sage(data: Data, dev) -> tuple:
@@ -889,7 +1081,7 @@ def phase2_sampled_sage(data: Data, dev) -> tuple:
     cfg = arxiv_sampled_config("sage", SAGE_FANOUTS, steps=20)
     L = cfg.model.num_layers
     return train_phase("phase2-sampled-sage", cfg, data, dev, k1_only(cfg.train.epochs * (L + (L - 1) + L)),
-                       falling=True)
+                       falling=True, want_perm=False)
 
 
 def phase2_sampled_gat(data: Data, dev) -> tuple:
@@ -901,7 +1093,7 @@ def phase2_sampled_gat(data: Data, dev) -> tuple:
     cfg = arxiv_sampled_config("gat", GAT_FANOUTS, steps=20)
     n = cfg.train.epochs * cfg.model.num_layers
     want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "blocked_matvec": 0}
-    return train_phase("phase2-sampled-gat", cfg, data, dev, want, falling=True)
+    return train_phase("phase2-sampled-gat", cfg, data, dev, want, falling=True, want_perm=False)
 
 
 def phase2_host(edges: np.ndarray, dev) -> tuple:
@@ -939,7 +1131,8 @@ def phase2_cluster(data: Data, dev) -> dict:
     """The GCN on the clustered graph through ``fit``, with the same seeds,
     first with ``train.reorder='cluster'``: each blocked product (3 layers x
     forward, dx and evaluation) is one blocked_matvec, which launches K1
-    once over its remainder; then with ``'auto'``, K1 over the CSR."""
+    once over its remainder; then with ``'auto'``, K1 over the CSR
+    relabelled by degree bucket."""
     n = arxiv_gcn_config().train.epochs * arxiv_gcn_config().model.num_layers
     out = {}
     for reorder, want in (
@@ -948,8 +1141,129 @@ def phase2_cluster(data: Data, dev) -> dict:
     ):
         cfg = arxiv_gcn_config()
         cfg.train.reorder = reorder
-        out[reorder] = train_phase(f"phase2-cluster reorder={reorder}", cfg, data, dev, want)
+        out[reorder] = train_phase(f"phase2-cluster reorder={reorder}", cfg, data, dev, want, want_perm=True)
     return out
+
+
+def pinned_copy_ms(nbytes: int, dev) -> float:
+    """Median CUDA-event time of one host-to-device copy of ``nbytes`` from
+    pinned memory: the rate the streamed chunks' copies are held to."""
+    host = torch.zeros(nbytes // 4, dtype=torch.int32, pin_memory=True)
+    card = torch.empty(host.shape, dtype=torch.int32, device=dev)
+    return time_ms(lambda: card.copy_(host, non_blocking=True), warmup=2, iters=10)
+
+
+def stream_norm(ei: np.ndarray, n: int, dev) -> torch.Tensor:
+    """d^-1/2 by in-degree over the gcn_norm'ed edges (self loops included):
+    the factors whose products are gcn_norm's symmetric weights."""
+    deg = np.bincount(ei[1], minlength=n).astype(np.float32)
+    return torch.from_numpy(np.where(deg > 0, deg, 1) ** -0.5).to(dev)
+
+
+def phase2_stream(edges: np.ndarray, dev) -> None:
+    """``graphs/streaming.py`` on the card. First the power-law arxiv-scale
+    graph at F=128 in chunks of 2^20 edges (3 chunks, destinations cut at
+    their boundaries), with baked gcn_norm weights and with ``norm``:
+    ``streaming_spmm`` and ``streaming_spmm_grad`` against resident K1
+    forward and dx over the same weights, bitwise on a repeat, one K1
+    launch a chunk each way. Then, timed, a generated graph whose edge list
+    stays on the host (``power_law(2,000,000, 16,000,000)``, undirected,
+    gcn_norm self loops: ~34 M edges; halved while its host prep passes 60
+    s) against x [N, 128] float32 on the card, in chunks of 2^22 edges:
+    chunks, edges/s, the host's pack ms and the copies' and K1's CUDA-event
+    ms a chunk, the copies' GB/s beside a pinned copy's measured in this
+    run (the stream's bound: its bytes at that rate)."""
+    ei, w = gcn_norm(edges, num_nodes=N_NODES, self_loops=True)
+    adj = build_adjacency(ei, w, num_nodes=N_NODES).to(dev)
+    norm = stream_norm(ei, N_NODES, dev)
+    src, dst = adj.src.long(), adj.dst.long()
+    norm_w = norm[src] * norm[dst]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(N_NODES, STREAM_F, generator=gen, device=dev)
+    g = torch.randn(N_NODES, STREAM_F, generator=gen, device=dev)
+    for mode, stream_w, weight in (("weighted", w, adj.weight), ("norm", None, norm_w)):
+        stream = EdgeStream(ei, stream_w, num_nodes=N_NODES, chunk_edges=STREAM_CHUNK)
+        t_stream = stream.transpose()
+        cut = sum(int(stream.dst[c * STREAM_CHUNK - 1] == stream.dst[c * STREAM_CHUNK])
+                  for c in range(1, stream.num_chunks))
+        t_weight = weight.index_select(0, adj.t_perm.long())
+        n_norm = norm if mode == "norm" else None
+        before = csr_spmm.launches
+        got = streaming_spmm(stream, x, norm=n_norm)
+        torch.cuda.synchronize()
+        launched = csr_spmm.launches - before
+        err = compare(f"phase2-stream {mode} fwd", got, csr_spmm(adj.row_ptr, adj.src, weight, x), torch.float32)
+        if not torch.equal(got, streaming_spmm(stream, x, norm=n_norm)):
+            raise AssertionError(f"phase2-stream {mode}: a second pass gave other bits")
+        xr = x.clone().requires_grad_()
+        before = csr_spmm.launches
+        streaming_spmm_grad(stream, t_stream, xr, norm=n_norm).backward(g)
+        torch.cuda.synchronize()
+        launched_grad = csr_spmm.launches - before
+        err_dx = compare(f"phase2-stream {mode} dx", xr.grad, csr_spmm(adj.t_row_ptr, adj.t_col, t_weight, g),
+                         torch.float32)
+        log(f"phase2-stream arxiv-scale {mode}: {stream.num_edges} edges in {stream.num_chunks} chunks of "
+            f"{STREAM_CHUNK} ({cut} destinations cut at a boundary), range_rows {stream.range_rows}; fwd max_abs_err "
+            f"{err:.3e}, dx {err_dx:.3e} against resident K1; bitwise on a repeat; K1 launches fwd {launched}, "
+            f"fwd + dx {launched_grad}")
+        if launched != stream.num_chunks or launched_grad != stream.num_chunks + t_stream.num_chunks:
+            raise AssertionError(f"phase2-stream {mode}: K1 launched {launched} / {launched_grad} times, "
+                                 f"not once a chunk")
+    del adj, x, g, xr, got, norm, norm_w, src, dst
+    torch.cuda.empty_cache()
+
+    n, e_dir = STREAM_NODES, STREAM_DIRECTED_EDGES
+    while True:
+        t0 = time.perf_counter()
+        ei, _ = to_undirected(power_law(n, e_dir, alpha=0.8, seed=0), num_nodes=n)
+        ei, w = gcn_norm(ei, num_nodes=n, self_loops=True)
+        streams = {
+            "weighted": EdgeStream(ei, w, num_nodes=n, chunk_edges=STREAM_TIMED_CHUNK),
+            "norm": EdgeStream(ei, num_nodes=n, chunk_edges=STREAM_TIMED_CHUNK),
+        }
+        prep = time.perf_counter() - t0
+        if prep <= STREAM_PREP_S:
+            break
+        log(f"phase2-stream host prep of power_law({n}, {e_dir}) took {prep:.1f} s > {STREAM_PREP_S} s: halving")
+        n, e_dir = n // 2, e_dir // 2
+    E = streams["norm"].num_edges
+    log(f"phase2-stream timed graph: power_law({n}, {e_dir}, alpha=0.8, seed=0), undirected, gcn_norm self loops: "
+        f"{n} nodes, {E} edges, edge arrays on the host {(ei.nbytes + w.nbytes) / 1e6:.1f} MB; host prep {prep:.1f} s")
+    norm = stream_norm(ei, n, dev)
+    del ei, w
+    x = torch.randn(n, STREAM_F, generator=gen, device=dev)
+    results = {}
+    for mode, stream in streams.items():
+        n_norm = norm if mode == "norm" else None
+        nbytes = stream.packed_len * 4
+        pinned_ms = pinned_copy_ms(nbytes, dev)
+        streaming_spmm(stream, x, norm=n_norm)  # warm-up
+        walls, stats = [], {}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = streaming_spmm(stream, x, norm=n_norm, stats=stats)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"phase2-stream timed {mode}: non-finite output")
+        results[mode] = out
+        wall = float(np.median(walls))
+        copy_ms, k1_ms = float(np.median(stats["copy_ms"])), float(np.median(stats["k1_ms"]))
+        k1_bound = bounds.csr_spmm_bound(stream.range_rows, n, stream.chunk_edges, STREAM_F, 4,
+                                         weighted=mode == "weighted")
+        bound_ms = stats["h2d_bytes"] / (nbytes / pinned_ms)
+        log(f"phase2-stream timed {mode}: chunks {stats['chunks']} of {stream.chunk_edges} edges, range_rows "
+            f"{stream.range_rows}, {nbytes / 1e6:.1f} MB a chunk; wall ms a pass {wall * 1e3:.1f} (3 passes: "
+            f"{[round(t * 1e3, 1) for t in walls]}), {E / wall / 1e6:.1f} M edges/s; host pack ms a chunk "
+            f"{stats['pack_ms'] / stats['chunks']:.2f}; copy ms a chunk {copy_ms:.3f} = {nbytes / copy_ms / 1e6:.2f} "
+            f"GB/s against a pinned copy's {pinned_ms:.3f} ms = {nbytes / pinned_ms / 1e6:.2f} GB/s; K1 ms a chunk "
+            f"{k1_ms:.3f} (bound {k1_bound.bound_ms:.3f}, no reuse {k1_bound.noreuse_ms:.3f}); the pass's bound "
+            f"(its H2D bytes at the pinned rate) {bound_ms:.1f} ms")
+    err = compare("phase2-stream timed weighted vs norm", results["weighted"], results["norm"], torch.float32)
+    log(f"phase2-stream timed: the weighted and norm passes agree (max abs err {err:.3e})")
+    del x, norm, results, out
+    torch.cuda.empty_cache()
 
 
 def card_vs_cpu(label: str, make_model, data: Data, adj_cpu, dev) -> None:
@@ -1035,9 +1349,28 @@ def kipf_band(dev, reorder: str = "auto") -> None:
     t0 = time.perf_counter()
     _, _, hist = fit(cfg, cora_like(seed=0), device=dev, verbose=False)
     acc = hist[-1]["test_acc"]
-    log(f"phase3 cora_like Kipf GCN reorder={reorder}: test_acc={acc:.4f} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase3 cora_like Kipf GCN train.reorder={reorder}: test_acc={acc:.4f} ({time.perf_counter() - t0:.1f} s)")
     if not 0.78 <= acc <= 0.88:
         raise AssertionError(f"phase3: cora_like test accuracy {acc} (reorder={reorder}) outside [0.78, 0.88]")
+
+
+def entry_on_card(dev) -> None:
+    """``gnn_tpu_torch.entry.entry()``: the flagship GCN forward on the card
+    (K1 once a layer) equals its CPU run."""
+    from gnn_tpu_torch.entry import entry
+
+    fn, args = entry()
+    fn_cpu, args_cpu = entry(device="cpu")
+    before = csr_spmm.launches
+    with torch.no_grad():
+        got = fn(*args)
+    took = csr_spmm.launches - before
+    with torch.no_grad():
+        err = compare("phase3 entry() logits (card vs CPU)", got.cpu(), fn_cpu(*args_cpu), torch.float32)
+    log(f"phase3 entry(): flagship GCN forward {tuple(got.shape)} on {got.device}, K1 launches {took}, "
+        f"max abs err against the CPU {err:.3e}")
+    if took != 2:
+        raise AssertionError(f"phase3 entry(): K1 launched {took} times, not 2")
 
 
 def phase3(dev) -> None:
@@ -1071,7 +1404,7 @@ def phase3(dev) -> None:
     if csr_spmm.launches - before != 8:
         raise AssertionError(f"phase3: GIN launched K1 {csr_spmm.launches - before} times, not 8")
 
-    kipf_band(dev)
+    kipf_band(dev)  # the default train.reorder='auto': cora_like relabelled by degree bucket
     kipf_band(dev, reorder="cluster")
 
     # The GAT Cora recipe; gnn_tpu.train.fit reaches 0.823 with it on the
@@ -1083,12 +1416,14 @@ def phase3(dev) -> None:
     t0 = time.perf_counter()
     _, _, hist = fit(cfg, cora_like(seed=0), device=dev, verbose=False)
     acc = hist[-1]["test_acc"]
-    log(f"phase3 cora_like GAT: test_acc={acc:.4f} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase3 cora_like GAT (train.reorder={cfg.train.reorder}, relabelled): test_acc={acc:.4f} "
+        f"({time.perf_counter() - t0:.1f} s)")
     if not 0.773 <= acc <= 0.873:
         raise AssertionError(f"phase3: cora_like GAT test accuracy {acc} outside [0.773, 0.873]")
 
     for flags in (
         ["--model.name", "gcn"], ["--model.name", "gat"], ["--train.reorder", "cluster"],
+        ["--train.reorder", "true"], ["--train.reorder", "auto"],
         ["--model.name", "encoder_gcn"], ["--model.name", "sage"], ["--model.name", "gin"],
         ["--optim.name", "sgd", "--optim.grad_clip", "1.0"],
     ):
@@ -1107,7 +1442,8 @@ def phase3(dev) -> None:
         log(f"phase3 cli.main {' '.join(flags)} returned {rc}")
         if rc != 0:
             raise AssertionError(f"phase3: cli.main {' '.join(flags)} returned {rc}")
-    resume_on_card("GCN full graph, dropout 0.5", dev)
+    resume_on_card("GCN full graph, dropout 0.5", dev)  # relabelled under the default 'auto'
+    entry_on_card(dev)
     resume_on_card("EncoderGCN (buffers)", dev, **{"model.name": "encoder_gcn"})
     resume_on_card("GraphSAGE sampled", dev,
                    **{"model.name": "sage", "train.batch_size": 64, "train.fanouts": "[4,4]"})
@@ -1133,6 +1469,17 @@ def main() -> int:
     del adj
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    relabelled = build_adjacency(ei, w, num_nodes=N_NODES, reorder=True)
+    log(f"relabelled graph (reorder=True, fit's default order): perm present {relabelled.perm is not None}, "
+        f"layout {relabelled.layout}, edge_agg present {relabelled.edge_agg is not None}, "
+        f"prep {time.perf_counter() - t0:.1f} s")
+    relabelled = relabelled.to(dev)
+    phase1_relabel(relabelled, dev, checks)
+    phase1_edge_agg(relabelled, dev, checks)
+    profiling_on_card(relabelled, dev)
+    del relabelled
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     clustered = clustered_edges()
     log(f"clustered graph: {N_NODES} nodes, {clustered.shape[1]} undirected edges, "
         f"generated in {time.perf_counter() - t0:.1f} s")
@@ -1140,10 +1487,12 @@ def main() -> int:
     log_by_graph("K1 F=256 fwd", by_graph["K1"])
     log_by_graph(f"K3 (H,F)={GAT_HEADS[0]} fwd", by_graph["K3"])
     data = arxiv_scale_data(edges)
-    runs = {
-        "gcn": phase2(data, dev), "gat": phase2_gat(data, dev), "encoder_gcn": phase2_encoder(data, dev),
+    runs = {"gcn": phase2(data, dev)}
+    runs.update({f"gcn-reorder-{k}": v for k, v in phase2_orders(data, dev, runs["gcn"][2]).items()})
+    runs.update({
+        "gat": phase2_gat(data, dev), "encoder_gcn": phase2_encoder(data, dev),
         "sage": phase2_sage(data, dev), "gin": phase2_gin(data, dev),
-    }
+    })
     del data
     sampled = arxiv_scale_data(edges, signal=1.0)
     runs.update({"sage-sampled": phase2_sampled_sage(sampled, dev), "gat-sampled": phase2_sampled_gat(sampled, dev)})
@@ -1151,29 +1500,36 @@ def main() -> int:
     runs["sage-host"] = phase2_host(edges, dev)
     cluster_runs = phase2_cluster(arxiv_scale_data(clustered), dev)
     runs.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})
-    by_path = {path: launches for path, (launches, _) in runs.items()}
+    by_path = {path: launches for path, (launches, _, _) in runs.items()}
+    phase2_stream(edges, dev)
     phase3(dev)
 
-    # The row each kernel's times come from: its widest main-path shape.
+    # The row each kernel's times come from: its widest main-path shape, on
+    # the relabelled graph that fit's default order trains on. ms_id_order is
+    # the same call's time in id order, the row these times came from before
+    # fit relabelled (None for blocked_matvec, whose graph is always packed).
     main_rows = {
-        "csr_spmm": dict(F=256, what="fwd A@x"),
-        "segment_sum_csr": dict(H=8, what="den [E,8]"),
-        "csr_spmm_heads": dict(H=8, what="fwd num"),
+        "csr_spmm": dict(F=256, what="fwd A@x", graph="relabelled"),
+        "segment_sum_csr": dict(H=8, what="den [E,8]", graph="relabelled"),
+        "csr_spmm_heads": dict(H=8, what="fwd num", graph="relabelled"),
         "blocked_matvec": dict(F=256, what="fwd A@x R=256 float32"),
     }
     entries = []
     for name, meta in KERNELS.items():
         row = next(r for r in checks[name]["rows"] if r["dtype"] == "torch.float32"
                    and all(r.get(k) == v for k, v in main_rows[name].items()))
+        shape = {k: v for k, v in main_rows[name].items() if k != "graph"}
+        id_row = id_order_row(checks, name, **shape) if "graph" in main_rows[name] else None
         launches = sum(path[name] for path in by_path.values())
         if launches == 0:
             raise AssertionError(f"{name} was not launched on any main path")
         entries.append(dict(
             name=name, route="cuda", **meta,
             launches=launches, max_abs_err=max(checks[name]["errs"]),
-            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            ms=row["ms"], ms_id_order=None if id_row is None else id_row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
-            launches_per_step={path: per_step[name] for path, (_, per_step) in runs.items()},
+            launches_per_step={path: per_step[name] for path, (_, per_step, _) in runs.items()},
         ))
     log(f"launches by path: {json.dumps(by_path)}")
     log(nvidia_smi())

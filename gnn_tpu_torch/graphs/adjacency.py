@@ -11,14 +11,22 @@ for the CSR layout, which is what the hand-written kernels read:
   the transpose product of the backward pass is a CSR product too;
 * ``t_col``/``t_weight``: the transpose's column and weight arrays
   (``dst[t_perm]``, ``weight[t_perm]``), cached so that the backward pass
-  gathers nothing per step.
+  gathers nothing per step;
+* ``edge_agg``/``t_edge_agg``: properties, the CSRs over edge positions of
+  :mod:`gnn_tpu_torch.ops.edge_agg` made from the arrays above (no copy),
+  not None exactly where the JAX package builds its slot tables.
 
-``reorder='cluster'`` relabels the nodes by community and adds the
-cluster-packed block-diagonal layouts of :mod:`gnn_tpu_torch.graphs.blocked`
-(``blocked`` and its transpose ``t_blocked``); ``perm`` is then the new ->
-old node map. Index arrays are int32, as the kernels take them. The JAX
-package's degree-bucket relabelling (``reorder=True``) and its TPU layouts
-(ELL, sorted-ELL, chunk plans) are not built: they raise.
+``reorder=True`` / ``'auto'`` relabels a degree-symmetric graph's nodes by
+degree bucket (:func:`~gnn_tpu_torch.graphs.sorted_ell.degree_bucket_order`,
+the JAX package's ``perm`` element for element) and ``reorder='cluster'`` by
+community, adding the cluster-packed block-diagonal layouts of
+:mod:`gnn_tpu_torch.graphs.blocked` (``blocked`` and its transpose
+``t_blocked``); ``perm`` is then the new -> old node map. Index arrays are
+int32, as the kernels take them. ``layout`` records which layout the JAX
+package would have built (``'sorted'``, ``'ell'``, ``'csr'`` or
+``'blocked'``), so that the ``spmm`` backends raise where it raises; the TPU
+layouts themselves (ELL and sorted-ELL slot tables, chunk plans) are not
+built: every layout is the CSR here.
 """
 
 from __future__ import annotations
@@ -31,8 +39,11 @@ import torch
 
 if TYPE_CHECKING:
     from gnn_tpu_torch.graphs.blocked import BlockedLayout
+    from gnn_tpu_torch.ops.edge_agg import EdgeAggLayout
 
 __all__ = ["Adjacency", "build_adjacency"]
+
+_NOT_TENSORS = ("num_src_nodes", "num_dst_nodes", "layout")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,9 +58,10 @@ class Adjacency:
     t_weight: Optional[torch.Tensor]  # [E] float32: weight[t_perm]
     num_src_nodes: int
     num_dst_nodes: int
-    perm: Optional[torch.Tensor] = None  # [N] int32 new -> old node id (reorder='cluster')
+    perm: Optional[torch.Tensor] = None  # [N] int32 new -> old node id (reorder)
     blocked: Optional[BlockedLayout] = None  # intra-window blocks + remainder CSR
     t_blocked: Optional[BlockedLayout] = None  # the same for the transpose (dx)
+    layout: str = "csr"  # the JAX package's layout: 'sorted', 'ell', 'csr' or 'blocked'
 
     @property
     def num_edges(self) -> int:
@@ -59,6 +71,30 @@ class Adjacency:
     def device(self) -> torch.device:
         return self.src.device
 
+    def edge_agg_layouts(self) -> tuple:
+        """The two edge-position CSRs of this adjacency's arrays: by
+        destination (``row_ptr``, identity positions, ``dst``) and by source
+        (``t_row_ptr``, ``t_perm``, ``src``). Views, no copy."""
+        from gnn_tpu_torch.ops.edge_agg import EdgeAggLayout
+
+        E = self.num_edges
+        return (
+            EdgeAggLayout(self.row_ptr, None, self.dst, self.num_dst_nodes, E),
+            EdgeAggLayout(self.t_row_ptr, self.t_perm, self.src, self.num_src_nodes, E),
+        )
+
+    @property
+    def edge_agg(self) -> Optional[EdgeAggLayout]:
+        """The by-destination edge-position CSR (K2) where the JAX package
+        builds its ``edge_agg`` (layouts ``'ell'`` and ``'sorted'``), else None."""
+        return self.edge_agg_layouts()[0] if self.layout in ("ell", "sorted") else None
+
+    @property
+    def t_edge_agg(self) -> Optional[EdgeAggLayout]:
+        """The by-source edge-position CSR (K1 over ``t_perm``), present
+        with :attr:`edge_agg`."""
+        return self.edge_agg_layouts()[1] if self.layout in ("ell", "sorted") else None
+
     def to(self, device) -> "Adjacency":
         """A copy with every tensor and layout on ``device``."""
         move = lambda t: None if t is None else t.to(device)
@@ -67,7 +103,7 @@ class Adjacency:
             **{
                 f.name: move(getattr(self, f.name))
                 for f in dataclasses.fields(self)
-                if f.name not in ("num_src_nodes", "num_dst_nodes")
+                if f.name not in _NOT_TENSORS
             },
         )
 
@@ -100,9 +136,11 @@ class Adjacency:
         return cached
 
     def transpose(self) -> "Adjacency":
-        """A^T as an Adjacency (edges re-sorted by the old src). The blocked
-        layouts swap, and their canonical edge ids map through the inverse
-        of ``t_perm``."""
+        """A^T as an Adjacency (edges re-sorted by the old src), keeping
+        ``perm`` and ``layout``. The blocked layouts swap, and their
+        canonical edge ids map through the inverse of ``t_perm``; the
+        edge-position CSRs follow the transposed arrays, which is what the
+        JAX package's remapping of its slot tables amounts to."""
         inv = torch.empty_like(self.t_perm)
         inv[self.t_perm.long()] = torch.arange(self.num_edges, dtype=inv.dtype, device=inv.device)
 
@@ -130,6 +168,7 @@ class Adjacency:
             perm=self.perm,
             blocked=remap(self.t_blocked),
             t_blocked=remap(self.blocked),
+            layout=self.layout,
         )
 
 
@@ -158,6 +197,52 @@ def _cluster_perm(src, dst, n, *, rows, labels, n_iters, seed, refine) -> np.nda
     return refine_pack_order(packed, src, dst, rows)
 
 
+def _degree_perm(src, dst, num_src_nodes, num_dst_nodes, reorder, hub_dense) -> Optional[np.ndarray]:
+    """The degree-bucket node order (new -> old) of
+    ``gnn_tpu/graphs/adjacency.py:368-404``, or None where ``'auto'`` keeps
+    the ids. Degrees count the non-self edges; with ``hub_dense`` the order
+    comes from the in-degree over the edges whose source is not a hub."""
+    from gnn_tpu_torch.graphs.sorted_ell import degree_bucket_order
+
+    ns_mask = src != dst
+    deg_in = np.bincount(dst[ns_mask], minlength=num_dst_nodes)
+    symmetric = num_src_nodes == num_dst_nodes and np.array_equal(
+        deg_in, np.bincount(src[ns_mask], minlength=num_src_nodes)
+    )
+    if not symmetric:
+        if reorder != "auto":
+            raise ValueError(
+                "build_adjacency(reorder=True) needs a degree-symmetric "
+                "graph (in-degree == out-degree per node); pass "
+                "reorder='auto' to fall back, or symmetrize the edges "
+                "(graphs.to_undirected)"
+            )
+        return None
+    deg_order = deg_in
+    if hub_dense is not None:
+        is_hot = deg_in >= hub_dense
+        if is_hot.any():
+            deg_order = np.bincount(dst[ns_mask & ~is_hot[src]], minlength=num_dst_nodes)
+    return degree_bucket_order(deg_order)
+
+
+def _jax_layout(layout: str, num_edges: int, relabelled: bool, cluster: bool, ell_buckets) -> str:
+    """The layout the JAX package builds for these arguments
+    (``gnn_tpu/graphs/adjacency.py:430-481``), with its errors."""
+    if layout == "auto":
+        layout = "ell" if num_edges >= 2048 else "csr"
+    if cluster:
+        return "blocked"
+    if relabelled and layout == "ell":
+        return "sorted"
+    if layout == "ell":
+        if ell_buckets is not None and len(ell_buckets) == 0:
+            raise ValueError("ell_buckets must be a non-empty width tuple")
+    elif layout != "csr":
+        raise ValueError(f"unknown layout '{layout}' (expected auto/ell/csr)")
+    return layout
+
+
 def build_adjacency(
     edge_index,
     edge_weight=None,
@@ -166,7 +251,10 @@ def build_adjacency(
     num_src_nodes: Optional[int] = None,
     num_dst_nodes: Optional[int] = None,
     layout: str = "auto",
+    ell_buckets=None,
     reorder=False,
+    hub_dense: Optional[int] = None,
+    hub_dtype=None,
     block_rows: int = 256,
     block_dtype: Optional[torch.dtype] = None,
     rem_backend: str = "auto",
@@ -177,29 +265,28 @@ def build_adjacency(
 ) -> Adjacency:
     """Prepare an :class:`Adjacency` (on the CPU) from a COO edge list [2, E].
 
-    ``reorder`` of ``False`` or ``"auto"`` keeps the node ids (``perm`` is
-    None): the JAX package's ``"auto"`` relabels the nodes by degree bucket
-    where its sorted layout pays, which the port does not do until that
-    layout is ported (ROADMAP Queue 1 item 9); results agree either way,
-    since the models are permutation-equivariant. ``"cluster"``
+    ``reorder=True`` or ``"auto"`` relabels the nodes of a degree-symmetric
+    graph (in-degree == out-degree per node over the non-self edges, e.g. any
+    symmetrized GCN graph) by degree bucket, as the JAX package does for its
+    sorted layout: ``perm`` equals its ``adj.perm``. On another graph
+    ``True`` raises the JAX package's ``ValueError`` and ``"auto"`` keeps the
+    ids. ``hub_dense`` (with ``True`` / ``"auto"`` only) takes the order from
+    the in-degree over edges whose source has fewer than ``hub_dense``
+    in-edges, as the JAX package does; its dense hub block and
+    ``hub_dtype`` are TPU machinery and build nothing here. ``"cluster"``
     relabels them into community-packed windows of ``block_rows`` nodes and
     builds the blocked layouts (``block_dtype`` for the dense blocks, e.g.
     ``torch.bfloat16``; ``rem_backend`` as in the JAX package, all values
     build the same CSR remainder; ``cluster_*`` steer the label
-    propagation and the boundary refinement). The adjacency then speaks the
-    relabelled id space: feed ``x[adj.perm]`` (``Data.permute_nodes``).
-    ``layout`` of ``"auto"`` or ``"csr"`` builds the CSR arrays.
+    propagation and the boundary refinement). A relabelled adjacency speaks
+    the new id space: feed ``x[adj.perm]`` (``Data.permute_nodes``).
+
+    ``layout`` (``"auto"``, ``"ell"`` or ``"csr"``; ``ell_buckets`` for
+    ``"ell"``) takes the JAX package's values and errors, and every value
+    builds the CSR; ``adj.layout`` records the JAX package's choice, and
+    ``edge_agg`` / ``t_edge_agg`` are present where that choice is
+    ``'ell'`` or ``'sorted'``, as there.
     """
-    if reorder not in (False, "auto", "cluster"):
-        raise NotImplementedError(
-            f"build_adjacency(reorder={reorder!r}) is not ported yet "
-            "(ROADMAP Queue 1 item 9); use reorder=False or 'cluster'"
-        )
-    if layout not in ("auto", "csr"):
-        raise NotImplementedError(
-            f"layout '{layout}' is not ported (ROADMAP Queue 1 item 9); "
-            "the port builds CSR only"
-        )
     ei = np.asarray(edge_index)
     if ei.ndim != 2 or ei.shape[0] != 2:
         raise ValueError(f"edge_index must be [2, E], got {ei.shape}")
@@ -218,13 +305,26 @@ def build_adjacency(
         raise ValueError("node and edge counts must fit int32 for the kernels")
 
     perm = None
-    if reorder == "cluster":
+    cluster = reorder == "cluster"
+    if cluster:
         if num_src_nodes != num_dst_nodes:
             raise ValueError("reorder='cluster' needs a square adjacency")
+        if hub_dense is not None:
+            raise ValueError(
+                "hub_dense applies to the degree-bucket layout only; the "
+                "blocked layout absorbs dense structure into its diagonal "
+                "blocks instead"
+            )
         perm = _cluster_perm(
             src, dst, num_dst_nodes, rows=int(block_rows), labels=cluster_labels,
             n_iters=cluster_iters, seed=cluster_seed, refine=cluster_refine,
         )
+    else:
+        if hub_dense is not None and not reorder:
+            raise ValueError("hub_dense requires reorder=True/'auto'")
+        if reorder:
+            perm = _degree_perm(src, dst, num_src_nodes, num_dst_nodes, reorder, hub_dense)
+    if perm is not None:
         old2new = np.empty(num_dst_nodes, np.int64)
         old2new[perm] = np.arange(num_dst_nodes)
         src, dst = old2new[src], old2new[dst]
@@ -235,13 +335,14 @@ def build_adjacency(
     t_perm = np.lexsort((dst, src))
     t_row_ptr = _csr_offsets(src[t_perm], num_src_nodes)
     w = None if edge_weight is None else np.asarray(edge_weight, np.float32)[order]
+    num_edges = len(src)
+    layout = _jax_layout(layout, num_edges, perm is not None, cluster, ell_buckets)
 
     blocked = t_blocked = None
-    if perm is not None:
+    if cluster:
         from gnn_tpu_torch.graphs.blocked import build_blocked
 
         kw = dict(edge_weight=w, rows=int(block_rows), block_dtype=block_dtype, rem_backend=rem_backend)
-        num_edges = len(src)
         blocked = build_blocked(src, dst, np.arange(num_edges), num_dst_nodes, num_edges, **kw)
         t_blocked = build_blocked(dst[t_perm], src[t_perm], t_perm, num_src_nodes, num_edges, **kw)
 
@@ -261,4 +362,5 @@ def build_adjacency(
         perm=None if perm is None else i32(perm),
         blocked=blocked,
         t_blocked=t_blocked,
+        layout=layout,
     )

@@ -174,10 +174,13 @@ class Data:
         """One-time host prep: COO -> normalized CSR Adjacency (on the CPU;
         move it with ``.to(device)``).
 
-        ``reorder='cluster'`` builds the community-packed blocked layouts;
-        its knobs (``block_rows``, ``block_dtype``, ...) pass through to
-        :func:`~gnn_tpu_torch.graphs.adjacency.build_adjacency`. The
-        adjacency then speaks a relabelled node space: pair it with
+        ``reorder`` (True / ``'auto'``) relabels a degree-symmetric graph
+        by degree bucket; ``reorder='cluster'`` builds the community-packed
+        blocked layouts. The other knobs (``layout``, ``ell_buckets``,
+        ``hub_dense``, ``hub_dtype``, ``block_rows``, ``block_dtype``, ...)
+        pass through to
+        :func:`~gnn_tpu_torch.graphs.adjacency.build_adjacency`. A
+        relabelled adjacency speaks a new node space: pair it with
         ``permute_nodes(adj.perm)``."""
         ei, ew = _numpy(self.edge_index), _numpy(self.edge_attr)
         if ew is not None and ew.ndim > 1:

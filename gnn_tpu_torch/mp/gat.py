@@ -46,7 +46,10 @@ __all__ = ["GATConv"]
 def _segment_max_shift(adj: Adjacency, e: torch.Tensor) -> torch.Tensor:
     """Per-destination max of the edge scores, gathered back per edge and
     held constant in the backward. The shift must be per segment: a global
-    max underflows every segment whose scores sit far below it."""
+    max underflows every segment whose scores sit far below it. One
+    plain-torch max for every layout: the JAX package's choice between
+    ``edge_aggregate_max`` and ``segment_max`` (``gnn_tpu/mp/gat.py:52-57``)
+    is between two layouts of the same max."""
     m = segment_max(e.detach(), adj.dst, adj.num_dst_nodes)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # empty segments
     return m.index_select(0, adj.dst.long())

@@ -6,17 +6,20 @@ are plain torch reductions over explicit segment ids (what
 ``segment_normalize``: the max is ``scatter_reduce("amax")``, since the JAX
 package has no kernel for it either. :func:`segment_sum_edges` reduces
 per-edge values in an adjacency's dst-sorted order to per-destination sums
-through kernel K2, with the backward a gather by destination (as at
-``gnn_tpu/ops/segment.py:204-206``). ``indices_are_sorted=``, ``backend=`` and
-``interpret=`` steer the JAX package's lowering only; they are accepted and
-ignored here, so that its callers' code carries over.
+through kernel K2 (:func:`~gnn_tpu_torch.ops.edge_agg.edge_aggregate` over
+the adjacency's destination CSR), with the backward a gather by destination
+(as at ``gnn_tpu/ops/segment.py:204-206``). ``backend='agg'`` raises the JAX
+package's error where the adjacency has no ``edge_agg``; the other
+``backend=`` values, ``indices_are_sorted=`` and ``interpret=`` steer the JAX
+package's lowering only; they are accepted and ignored here, so that its
+callers' code carries over.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr
+from gnn_tpu_torch.ops.edge_agg import edge_aggregate
 
 __all__ = [
     "segment_sum",
@@ -101,26 +104,16 @@ def segment_normalize(
     return data / mass.index_select(0, segment_ids.long()).clamp_min(eps)
 
 
-class _SegmentSumEdges(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, values, row_ptr, dst):
-        ctx.save_for_backward(dst)
-        return segment_sum_csr(row_ptr, values)
-
-    @staticmethod
-    def backward(ctx, g):
-        (dst,) = ctx.saved_tensors
-        return g.index_select(0, dst.long()), None, None
-
-
 def segment_sum_edges(
     values: torch.Tensor, adj, *, backend: str = "auto", interpret: bool = False
 ) -> torch.Tensor:
     """Per-edge values [E, ...] (dst-sorted order) -> per-destination sums
     [N_dst, ...] through K2; differentiable in ``values``."""
+    if backend == "agg" and getattr(adj, "edge_agg", None) is None:
+        raise ValueError("adjacency has no edge_agg layout (layout='ell')")
     shape = values.shape
     if shape[0] != adj.num_edges:
         raise ValueError(f"expected {adj.num_edges} edge values, got {shape[0]}")
-    flat = values.reshape(shape[0], -1).contiguous()
-    out = _SegmentSumEdges.apply(flat, adj.row_ptr, adj.dst)
+    lay = adj.edge_agg_layouts()[0]
+    out = edge_aggregate(values.reshape(shape[0], -1), lay)
     return out.reshape((adj.num_dst_nodes,) + tuple(shape[1:]))

@@ -2,22 +2,24 @@
 
 Port of ``gnn_tpu/ops/spmm.py::spmm``: out[d] = sum over in-edges
 e=(s -> d) of w_e * x[s], differentiable in x (dx = A^T g) and, through
-:func:`spmm_edge_weighted`, in the edge weights. Two backends:
+:func:`spmm_edge_weighted`, in the edge weights. The backends:
 
 * ``segment``: kernel K1 (``ops/cuda/spmm.py``) over the CSR, forward and
   dx through the transpose CSR;
+* ``ell`` and ``sorted``: the JAX package's ELL and sorted-ELL slot tables
+  are TPU layouts; here both run K1 over the same CSR, and raise the JAX
+  package's ``ValueError`` where its adjacency would lack that layout
+  (``adj.layout`` records which one it built);
 * ``blocked`` (the ``'auto'`` choice when the adjacency was built with
   ``reorder='cluster'``): :func:`~gnn_tpu_torch.graphs.blocked.blocked_matvec`
   forward and over ``t_blocked`` for dx, the JAX package's
   ``_spmm_blocked`` (``gnn_tpu/ops/spmm.py:137-158``). Its weights are
   layout constants, with no dw, as in JAX.
 
-:func:`spmm_coo` is the one-off product over a bare COO edge list, without a
-prepared adjacency: plain torch on every device.
-
-On the CPU the kernels' plain versions run. The JAX package's other layout
-backends ('ell', 'sorted') are TPU layouts the port does not build (ROADMAP
-Queue 1 item 9); they raise, as does the retired 'pallas'.
+``'auto'`` takes ``blocked`` where that layout exists and K1 otherwise; the
+retired ``'pallas'`` raises, as in the JAX package. :func:`spmm_coo` is the
+one-off product over a bare COO edge list, without a prepared adjacency:
+plain torch on every device. On the CPU the kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -31,7 +33,14 @@ from gnn_tpu_torch.ops.cuda.spmm import spmm_csr
 
 __all__ = ["spmm", "spmm_coo", "spmm_edge_weighted"]
 
-_UNPORTED = ("ell", "sorted", "pallas")
+# The JAX package's error where its adjacency lacks the backend's layout
+# (gnn_tpu/ops/spmm.py:330-361); here the backend names adj.layout.
+_LAYOUT_ERRORS = {
+    "sorted": "spmm backend 'sorted' needs the reordered layout: build the "
+    "adjacency with build_adjacency(..., reorder=True)",
+    "ell": "spmm backend 'ell' needs an ELL layout: build the adjacency "
+    "with build_adjacency(..., layout='ell')",
+}
 
 
 class _BlockedSpmm(torch.autograd.Function):
@@ -53,15 +62,12 @@ def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Ten
     """out = A @ x, A given by ``adj`` (logically [N_dst, N_src]).
 
     ``backend``: 'auto' takes 'blocked' when the adjacency has the blocked
-    layouts and 'segment' (K1 over the CSR) otherwise.
+    layouts and K1 over the CSR otherwise; 'segment', 'ell' and 'sorted' run
+    K1 over the CSR (the latter two where the JAX package's adjacency would
+    have that layout).
     """
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
-    if backend in _UNPORTED:
-        raise NotImplementedError(
-            f"spmm backend '{backend}' is a TPU layout the port does not build "
-            "(ROADMAP Queue 1 item 9); use 'auto', 'segment' or 'blocked'"
-        )
     if backend == "auto":
         backend = "blocked" if adj.blocked is not None else "segment"
     if backend == "blocked":
@@ -71,7 +77,15 @@ def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Ten
                 "adjacency with build_adjacency(..., reorder='cluster')"
             )
         return _BlockedSpmm.apply(x, adj)
-    if backend != "segment":
+    if backend == "pallas":
+        raise ValueError(
+            "spmm backend 'pallas' is retired: it wins no measured regime in the "
+            "JAX package. Use backend='auto'."
+        )
+    if backend in _LAYOUT_ERRORS:
+        if adj.layout != backend:
+            raise ValueError(_LAYOUT_ERRORS[backend])
+    elif backend != "segment":
         raise ValueError(f"unknown spmm backend '{backend}'")
     return spmm_csr(adj, x)
 

@@ -11,6 +11,9 @@ mean|sum|max``) and gin; ``--optim.name`` one of adam, adamw and sgd (with
 norm to C before each step. ``--train.batch_size B --train.fanouts [10,5]``
 trains sage, gat or gin on neighbour-sampled minibatches (with
 ``--train.host_features true`` sampled and gathered on the host);
+``--train.reorder auto|true|false|cluster`` picks the node order of a
+full-graph run (``auto``, the default, and ``true`` relabel by degree
+bucket; ``true`` raises on a graph that is not degree-symmetric);
 ``--train.checkpoint_dir D [--train.checkpoint_every K]`` writes checkpoints
 (``fit(resume=True)`` continues from the latest). Any Config field is overridable with a dotted
 flag. --config loads a JSON config file first; dotted flags override it.

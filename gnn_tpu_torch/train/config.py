@@ -3,8 +3,7 @@
 A copy of ``gnn_tpu/train/config.py`` (the JAX module cannot be imported
 without jax): one dataclass tree, JSON-serializable, with ``section.key=value``
 overrides. The fields are the same, so a config file serves both packages;
-the port's ``fit`` raises on the branches it does not run yet (partitions,
-``reorder='true'``).
+the port's ``fit`` raises on the branch it does not run yet (partitions).
 """
 
 from __future__ import annotations
@@ -43,10 +42,10 @@ class TrainConfig:
     batch_size: int = 0  # 0 = full graph; > 0 = neighbour-sampled minibatches of that many seeds
     fanouts: List[int] = field(default_factory=lambda: [10, 5])
     eval_every: int = 10
-    # "cluster" relabels the nodes into the cluster-blocked layout. "auto"
-    # and "false" keep the node ids: the JAX package's "auto" relabels by
-    # degree bucket where that pays, which the port does not do yet, and
-    # "true" (that relabelling, forced) raises (ROADMAP Queue 1 item 9).
+    # "auto" relabels a degree-symmetric graph's nodes by degree bucket (and
+    # keeps the ids of another), "true" relabels or raises, "false" keeps the
+    # ids, "cluster" relabels into the cluster-blocked layout. Sampled
+    # minibatches keep the ids whatever the value.
     reorder: str = "auto"
     checkpoint_dir: str = ""  # non-empty: a final checkpoint, and fit(resume=True) reads it
     checkpoint_every: int = 0  # also after every such epoch that is evaluated

@@ -3,8 +3,11 @@
 Port of the single-device branches of ``gnn_tpu/train/loop.py::fit``:
 
 * **full graph**: one-time prep (exact ``gcn_norm`` and the CSR adjacency,
-  with the cluster-blocked layouts and relabelled nodes under
-  ``train.reorder='cluster'``, moved to the device), then per epoch the model
+  moved to the device; under the default ``train.reorder='auto'`` and under
+  ``'true'`` the nodes of a degree-symmetric graph are relabelled by degree
+  bucket, under ``'cluster'`` by community with the cluster-blocked
+  layouts, as in the JAX ``fit``; features, labels and masks move with
+  them), then per epoch the model
   -> masked cross entropy -> backward -> (gradient clipping ->) Adam, AdamW
   or SGD;
 * **sampled minibatches** (``train.batch_size > 0``; ``sage``, ``gat``,
@@ -30,9 +33,8 @@ stopping on validation accuracy and checkpoints
 evaluation, returned in the middle slot), ``sage`` (scales its messages by
 the ``gcn_norm`` weights, as the JAX ``fit`` hands them to every model) and
 ``gin`` (drops them). Multi-device partitions (``dist.num_parts > 1``, with
-or without sampling) and the degree-bucket relabelling
-(``train.reorder='true'``) are not ported yet: their settings raise
-``NotImplementedError`` (ROADMAP Queue 1 items 15 and 9).
+or without sampling) are not ported yet: their settings raise
+``NotImplementedError`` (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -63,6 +65,8 @@ from gnn_tpu_torch.train.metrics import MetricLogger, Throughput
 __all__ = ["build_model", "build_optimizer", "build_step", "TrainStep", "fit", "evaluate"]
 
 _SPLITS = ("train", "val", "test")
+# train.reorder -> build_adjacency(reorder=...), as gnn_tpu/train/loop.py:239-244
+_REORDER = {"auto": "auto", "true": True, "false": False, "cluster": "cluster"}
 
 
 def build_model(
@@ -128,13 +132,7 @@ def _check_supported(cfg: Config) -> None:
             "dist.num_parts > 1 (multi-device partitions and data-parallel sampling, "
             "ROADMAP Queue 1 item 15) is not ported yet"
         )
-    reorder = str(t.reorder).lower()
-    if reorder == "true":
-        raise NotImplementedError(
-            "train.reorder='true' (the degree-bucket relabelling) is not ported yet "
-            "(ROADMAP Queue 1 item 9); use 'auto', 'false' or 'cluster'"
-        )
-    if reorder not in ("auto", "false", "cluster"):
+    if str(t.reorder).lower() not in _REORDER:
         raise ValueError(f"unknown train.reorder '{t.reorder}'")
 
 
@@ -283,12 +281,12 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
         feed = _HostFeed(loader, device)
         hop_adjs = [a.to(device) for a in loader.adjacencies(t.batch_size)]
     else:
-        # train.reorder='cluster': relabel the nodes into community-packed
-        # windows for the blocked layout (exact: GNNs are permutation-
-        # equivariant; features, labels and masks move with the nodes).
-        # Sampled minibatches index data.x by the original ids: no relabelling.
-        cluster = str(t.reorder).lower() == "cluster" and not sampled
-        adj = data.to_adjacency(norm="sym", reorder="cluster" if cluster else False)
+        # train.reorder: relabel the nodes by degree bucket or into
+        # community-packed windows (exact: GNNs are permutation-equivariant;
+        # features, labels and masks move with the nodes). Sampled
+        # minibatches index data.x by the original ids: no relabelling.
+        reorder = False if sampled else _REORDER[str(t.reorder).lower()]
+        adj = data.to_adjacency(norm="sym", reorder=reorder)
         if adj.perm is not None:
             data = data.permute_nodes(adj.perm)
         adj = adj.to(device)

@@ -534,3 +534,113 @@ def test_spmm_coo_card_matches_cpu(cuda_device, weighted):
     for got, want in zip(outs[1], outs[0]):
         if want is not None:
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _relabelled_power_law(n=3000, e=40000, reorder=True):
+    ei, _ = tg.to_undirected(tg.power_law(n, e, seed=5), num_nodes=n)
+    ei, w = tg.gcn_norm(ei, num_nodes=n)
+    return tg.build_adjacency(ei, w, num_nodes=n, reorder=reorder)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [8, 40, 128])
+def test_k1_k2_k3_on_relabelled_csr_on_card(cuda_device, dtype, F):
+    """The degree-bucket relabelled CSR through K1 (weighted, w null, over
+    t_perm), K2 and K3: against the plain versions and bitwise on a
+    repeat; spmm over 'sorted' equals 'segment' bit for bit."""
+    adj = _relabelled_power_law().to(cuda_device)
+    assert adj.perm is not None and adj.layout == "sorted"
+    n, e = adj.num_dst_nodes, adj.num_edges
+    make = lambda *shape: torch.randn(*shape, device=cuda_device).to(dtype)
+    x, msg = make(n, F), make(e, F)
+    for args in ((adj.row_ptr, adj.src, adj.weight, x), (adj.row_ptr, adj.src, None, x),
+                 (adj.t_row_ptr, adj.t_col, adj.t_weight, x), (adj.t_row_ptr, adj.t_perm, None, msg)):
+        _check_deterministic(csr_spmm, csr_spmm_plain, args, dtype)
+    _check_deterministic(segment_sum_csr, segment_sum_csr_plain, (adj.row_ptr, msg), dtype)
+    H = 8 if F % 8 == 0 else 1
+    w = torch.rand(e, H, device=cuda_device)
+    _check_deterministic(csr_spmm_heads, csr_spmm_heads_plain, (adj.row_ptr, adj.src, w, x.view(n, H, F // H)), dtype)
+    assert torch.equal(tops.spmm(adj, x, backend="sorted"), tops.spmm(adj, x, backend="segment"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["edge_agg", "t_edge_agg"])
+@pytest.mark.parametrize("F", [1, 8])
+def test_edge_aggregate_runs_k2_or_k1_on_card(cuda_device, which, F):
+    """edge_aggregate over the identity positions launches K2 once, over
+    t_perm K1 once; its gradient is a gather; edge_aggregate_max equals the
+    CPU's bit for bit (-inf on empty rows)."""
+    from gnn_tpu_torch.ops.edge_agg import edge_aggregate, edge_aggregate_max
+
+    cpu = _relabelled_power_law()
+    adj = cpu.to(cuda_device)
+    lay, lay_cpu = getattr(adj, which), getattr(cpu, which)
+    msg_cpu = torch.randn(adj.num_edges, F)
+    msg = msg_cpu.to(cuda_device).requires_grad_()
+    k1, k2 = csr_spmm.launches, segment_sum_csr.launches
+    out = edge_aggregate(msg, lay)
+    torch.cuda.synchronize()
+    assert (csr_spmm.launches - k1, segment_sum_csr.launches - k2) == ((0, 1) if which == "edge_agg" else (1, 0))
+    torch.testing.assert_close(out.cpu(), edge_aggregate(msg_cpu, lay_cpu), rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, edge_aggregate(msg.detach(), lay))
+    g = torch.randn_like(out)
+    out.backward(g)
+    assert torch.equal(msg.grad, g.index_select(0, lay.edge_node.long()))
+    assert torch.equal(edge_aggregate_max(msg, lay).cpu(), edge_aggregate_max(msg_cpu, lay_cpu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["unweighted", "weighted", "norm"])
+@pytest.mark.parametrize("chunk_edges", [1000, 4096, 1 << 20])
+def test_streaming_spmm_equals_resident_k1_on_card(cuda_device, mode, chunk_edges):
+    """Every chunk count from one to many (1,000-edge chunks: 80 chunks,
+    each staging buffer refilled 40 times): the streamed product equals the
+    resident K1 over the same CSR within float32 order error, repeats bit
+    for bit, launches K1 once a chunk, and its gradient streams the
+    transpose."""
+    from gnn_tpu_torch.graphs.streaming import EdgeStream, streaming_spmm, streaming_spmm_grad
+
+    n = 3000
+    ei, _ = tg.to_undirected(tg.power_law(n, 40000, seed=6), num_nodes=n)
+    rng = np.random.default_rng(0)
+    w = rng.random(ei.shape[1]).astype(np.float32) if mode == "weighted" else None
+    norm_np = rng.random(n).astype(np.float32)
+    stream = EdgeStream(ei, w, num_nodes=n, chunk_edges=chunk_edges)
+    adj = tg.build_adjacency(ei, w, num_nodes=n)
+    norm = None
+    if mode == "norm":
+        norm = torch.from_numpy(norm_np).to(cuda_device)
+        adj = adj.with_weight(torch.from_numpy(norm_np[adj.src.numpy()] * norm_np[adj.dst.numpy()]))
+    adj = adj.to(cuda_device)
+    x = torch.randn(n, 64, device=cuda_device)
+    before = csr_spmm.launches
+    stats = {}
+    got = streaming_spmm(stream, x, norm=norm, stats=stats)
+    torch.cuda.synchronize()
+    assert csr_spmm.launches - before == stream.num_chunks == stats["chunks"]
+    assert len(stats["copy_ms"]) == len(stats["k1_ms"]) == stream.num_chunks
+    resident = csr_spmm(adj.row_ptr, adj.src, adj.weight, x)
+    torch.testing.assert_close(got, resident, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, streaming_spmm(stream, x, norm=norm))
+    xr = x.clone().requires_grad_()
+    g = torch.randn(n, 64, device=cuda_device)
+    streaming_spmm_grad(stream, stream.transpose(), xr, norm=norm).backward(g)
+    torch.testing.assert_close(xr.grad, csr_spmm(adj.t_row_ptr, adj.t_col, adj.t_weight, g), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_device_put_slabbed_and_entry_on_card(cuda_device):
+    """A slabbed copy through the two pinned buffers lands whole; the
+    flagship forward on the card equals the CPU's."""
+    from gnn_tpu_torch.entry import entry
+    from gnn_tpu_torch.graphs.streaming import device_put_slabbed
+
+    arr = np.random.default_rng(1).normal(size=(10_001, 33)).astype(np.float32)
+    got = device_put_slabbed(arr, slab_bytes=33 * 4 * 700)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), torch.from_numpy(arr))
+    fn, args = entry()
+    fn_cpu, args_cpu = entry(device="cpu")
+    args[0].load_state_dict(args_cpu[0].state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(fn(*args).cpu(), fn_cpu(*args_cpu), rtol=1e-4, atol=1e-5)

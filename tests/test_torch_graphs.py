@@ -6,6 +6,7 @@ weights in its native core, the port from float64 ones).
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -157,11 +158,15 @@ def test_data_to_adjacency_matches(rng):
 
 
 def test_unported_options_raise(rng, tmp_path):
+    """The relabelling and the layouts are ported (ROADMAP item 9): the
+    options take the JAX package's values and raise its errors."""
     ei, n = _random_edges(rng)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.build_adjacency(ei, num_nodes=n, reorder=True)
-    with pytest.raises(NotImplementedError, match="CSR only"):
-        tg.build_adjacency(ei, num_nodes=n, layout="ell")
+    for kwargs in (dict(reorder=True), dict(layout="bogus"), dict(layout="ell", ell_buckets=())):
+        with pytest.raises(ValueError) as want:
+            jg.build_adjacency(ei, num_nodes=n, **kwargs)
+        with pytest.raises(ValueError, match=re.escape(str(want.value))):
+            tg.build_adjacency(ei, num_nodes=n, **kwargs)
+    assert tg.build_adjacency(ei, num_nodes=n, layout="ell").layout == "ell"
     # the file loaders are ported (local files only): without the files they
     # name the layout they expect, as the JAX package's do
     for name, layout in (("cora", "ind.cora"), ("ogbn-arxiv", "standard OGB extracted layout")):

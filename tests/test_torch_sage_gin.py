@@ -315,16 +315,18 @@ def test_data_keeps_float_labels(y, dtype, shape):
 
 
 def test_reorder_auto_keeps_node_ids_until_roadmap_item_9(graph):
-    """The JAX package's ``reorder='auto'`` may relabel the nodes (a
-    degree-bucket order for its sorted layout); the port keeps the ids until
-    that layout is ported (ROADMAP Queue 1 item 9). Pinned so that the later
-    change is made knowingly."""
-    _, td, _ = graph
-    assert td.to_adjacency(norm="sym", reorder="auto").perm is None
+    """ROADMAP Queue 1 item 9 has landed: ``reorder='auto'`` and ``True``
+    relabel the nodes by degree bucket as the JAX package does, ``perm``
+    element for element, and ``False`` keeps the ids. Pinned so that a later
+    change to the order is made knowingly."""
+    jd, td, _ = graph
+    for reorder in ("auto", True):
+        want = np.asarray(jd.to_adjacency(norm="sym", reorder=reorder).perm)
+        got = td.to_adjacency(norm="sym", reorder=reorder).perm
+        assert got is not None and got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
     assert td.to_adjacency(norm="sym", reorder=False).perm is None
-    assert "item 9" in tgraphs.build_adjacency.__doc__
-    with pytest.raises(NotImplementedError, match="item 9"):
-        td.to_adjacency(norm="sym", reorder=True)
+    assert "item 9" not in tgraphs.build_adjacency.__doc__
 
 
 @pytest.mark.parametrize(

@@ -194,10 +194,21 @@ def test_unported_branches_raise(override, tmp_path):
     item; what has been ported since does what the JAX ``fit`` does: sampled
     minibatches train (a model without ``forward_sampled`` is refused),
     ``host_features`` alone hits the JAX guard, ``checkpoint_dir`` writes
-    the final checkpoint."""
-    if "dist.num_parts" in override or "train.reorder" in override:
-        with pytest.raises(NotImplementedError, match="item 15" if "dist.num_parts" in override else "item 9"):
+    the final checkpoint, ``train.reorder='true'`` relabels and trains to
+    the JAX loss curve (rtol=1e-4)."""
+    if "dist.num_parts" in override:
+        with pytest.raises(NotImplementedError, match="item 15"):
             fit(_cfg(**override), load_dataset("karate"), device="cpu", verbose=False)
+    elif "train.reorder" in override:
+        jdata, tdata = jax_load_dataset("sbm"), load_dataset("sbm")
+        jmodel = JaxGCN(tdata.num_features, 16, 4, key=jax.random.PRNGKey(2), dropout=0.0)
+        tmodel = load_jax_state_dict(
+            GCN(tdata.num_features, 16, 4, dropout=0.0),
+            {k: np.asarray(v) for k, v in jnn.state_dict(jmodel).items()},
+        )
+        _, _, jhist = jax_fit(JaxConfig.from_json(_cfg(**override).to_json()), jdata, model=jmodel, verbose=False)
+        _, _, thist = fit(_cfg(**override), tdata, model=tmodel, device="cpu", verbose=False)
+        np.testing.assert_allclose([h["loss"] for h in thist], [h["loss"] for h in jhist], rtol=1e-4)
     elif override == {"train.host_features": True}:
         with pytest.raises(ValueError, match="train.host_features requires batch_size > 0"):
             fit(_cfg(**override), load_dataset("karate"), device="cpu", verbose=False)

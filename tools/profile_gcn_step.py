@@ -1,7 +1,7 @@
 """Where a training step's time goes on one NVIDIA GPU, for any of the models.
 
     python3 tools/profile_gcn_step.py [--model gcn|gat|encoder_gcn|sage|gin] [--graph powerlaw|clustered]
-        [--reorder auto|cluster] [--batch-size B --fanouts 15,10,5 [--host-features]]
+        [--reorder auto|true|false|cluster] [--batch-size B --fanouts 15,10,5 [--host-features]]
         [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
 
 Builds the arxiv-scale graph of ``chip_smoke.py`` (``--graph powerlaw``, the
@@ -12,10 +12,10 @@ heads x 32, 1 output head, dropout 0.5, Adam lr 0.005), 2-encoder
 (``--model encoder_gcn``: the flagship, pre-MLP 128 -> 256 -> 128, 2
 mid-block convs, post-MLP; Adam), 2-sage (``--model sage``: GraphSAGE 3 x
 256, mean; Adam) or 2-gin (``--model gin``: GIN 3 x 256; SGD with momentum
-and gradient clipping); ``--reorder
-cluster`` relabels the nodes and builds the cluster-blocked layout, as
-``fit`` does under ``train.reorder='cluster'``. It runs ``fit``'s training
-step on it:
+and gradient clipping); ``--reorder`` is ``fit``'s ``train.reorder``:
+``auto`` (the default) and ``true`` relabel the nodes by degree bucket,
+``false`` keeps the ids, ``cluster`` relabels them and builds the
+cluster-blocked layout. It runs ``fit``'s training step on it:
 the model with dropout -> masked cross entropy, backward, (clipping,) the
 optimizer. ``--batch-size B --fanouts f1,f2,...`` (``--model sage`` or
 ``gat``; one layer per fanout) runs ``fit``'s neighbour-sampled step instead
@@ -173,7 +173,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=tuple(CONFIGS), default="gcn")
     ap.add_argument("--graph", choices=("powerlaw", "clustered"), default="powerlaw")
-    ap.add_argument("--reorder", choices=("auto", "cluster"), default="auto")
+    ap.add_argument("--reorder", choices=("auto", "true", "false", "cluster"), default="auto")
     ap.add_argument("--batch-size", type=int, default=0, help="seeds of a neighbour-sampled minibatch; 0 = full graph")
     ap.add_argument("--fanouts", default="15,10,5", help="with --batch-size: one fanout per layer, outermost last")
     ap.add_argument("--host-features", action="store_true", help="with --batch-size: sample and gather on the host")
