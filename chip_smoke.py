@@ -958,9 +958,13 @@ def train_phase(
         loop.build_step = build_step
     launches = read_counters()
     adj = steps[0].adj
-    perm = adj is not None and adj.perm is not None
-    log(f"{label} train.reorder={cfg.train.reorder}: perm {'present' if perm else 'absent'}"
-        + ("" if adj is None else f", layout {adj.layout}"))
+    perm = getattr(adj, "perm", None) is not None
+    if cfg.dist.num_parts > 1 and not cfg.train.batch_size:
+        log(f"{label}: {adj.num_parts} parts on {adj.device}, halo {adj.halo}, n_max {adj.n_max}, "
+            f"h_max {adj.h_max}, e_max {adj.e_max}")
+    else:
+        log(f"{label} train.reorder={cfg.train.reorder}: perm {'present' if perm else 'absent'}"
+            + ("" if adj is None else f", layout {adj.layout}"))
     if want_perm is not None and perm != want_perm:
         raise AssertionError(f"{label}: perm {'present' if perm else 'absent'}, expected the opposite")
     if check is not None:
@@ -982,7 +986,7 @@ def train_phase(
         raise AssertionError(f"{label}: the loss did not fall: {losses}")
     if launches != want:
         raise AssertionError(f"{label}: launches {launches}, expected {want}")
-    return launches, per_step, median_ms
+    return launches, per_step, median_ms, history
 
 
 def phase2(data: Data, dev) -> tuple:
@@ -1447,6 +1451,299 @@ def phase3(dev) -> None:
     resume_on_card("EncoderGCN (buffers)", dev, **{"model.name": "encoder_gcn"})
     resume_on_card("GraphSAGE sampled", dev,
                    **{"model.name": "sage", "train.batch_size": 64, "train.fanouts": "[4,4]"})
+    dist_card_vs_cpu(dev)
+    world_of_one(dev)
+
+
+# -- graph-partition parallelism: P parts on the one card --------------------
+
+DIST_PARTS, DIST_F, DIST_GAT_WIDTH, DIST_BLOCK = 4, 256, 8 * 32 + 8, 256
+
+
+def counted(fn) -> tuple:
+    """(fn's result, its K1 and K2 launches) after a sync."""
+    before = (csr_spmm.launches, segment_sum_csr.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (csr_spmm.launches - before[0], segment_sum_csr.launches - before[1])
+
+
+def remote_share(dist, ei: np.ndarray) -> float:
+    """The share of edges whose source another part owns."""
+    return float(np.mean(ei[0] // dist.n_max != ei[1] // dist.n_max))
+
+
+def dist_spmm_rows(label: str, dist, adj_single, ei: np.ndarray, x: torch.Tensor, g: torch.Tensor, dev) -> dict:
+    """``spmm_dist`` forward and its dx (the backward's own call) on the card
+    against single-device K1 over the same graph, a bitwise repeat, times,
+    the exchange's time beside its byte bound, and launches per call."""
+    from gnn_tpu_torch.parallel.halo import _aggregate, _exchange, spmm_dist
+
+    n, P, F = dist.num_nodes, dist.num_parts, x.shape[1]
+    x_sh, g_sh = dist.shard_nodes(x), dist.shard_nodes(g)
+    out, fwd_launches = counted(lambda: spmm_dist(dist, x_sh))
+    dx, dx_launches = counted(lambda: _aggregate(dist, g_sh, transpose=True))
+    want = csr_spmm(adj_single.row_ptr, adj_single.src, adj_single.weight, x)
+    want_dx = csr_spmm(adj_single.t_row_ptr, adj_single.t_col, adj_single.t_weight, g)
+    err = compare(f"{label} fwd", dist.unshard_nodes(out), want, torch.float32)
+    err_dx = compare(f"{label} dx", dist.unshard_nodes(dx), want_dx, torch.float32)
+    check_repeat(f"{label} fwd", lambda: spmm_dist(dist, x_sh), (), out)
+    check_repeat(f"{label} dx", lambda: _aggregate(dist, g_sh, transpose=True), (), dx)
+    row = dict(
+        fwd_ms=time_ms(lambda: spmm_dist(dist, x_sh)), dx_ms=time_ms(lambda: _aggregate(dist, g_sh, transpose=True)),
+        single_fwd_ms=time_ms(lambda: csr_spmm(adj_single.row_ptr, adj_single.src, adj_single.weight, x)),
+        single_dx_ms=time_ms(lambda: csr_spmm(adj_single.t_row_ptr, adj_single.t_col, adj_single.t_weight, g)),
+        err=max(err, err_dx), h_max=dist.h_max, remote_share=remote_share(dist, ei),
+        launches_fwd=fwd_launches, launches_dx=dx_launches,
+    )
+    if dist.halo == "allgather":
+        row.update(exchange_ms=0.0, exchange_bound_ms=0.0)  # the gathered layout is x itself on one card
+    else:
+        slots = dist.exchange_idx.numel()
+        row.update(exchange_ms=time_ms(lambda: _exchange(dist, x_sh, dist.exchange_idx)),
+                   exchange_bound_ms=bounds.exchange_bound(slots, F, 4).bound_ms, exchange_rows=slots)
+    log(f"{label}: P={P} F={F} h_max={dist.h_max} remote share {row['remote_share']:.4f} max_abs_err={row['err']:.3e} "
+        f"fwd_ms={row['fwd_ms']:.4f} dx_ms={row['dx_ms']:.4f} single-device K1 fwd_ms={row['single_fwd_ms']:.4f} "
+        f"dx_ms={row['single_dx_ms']:.4f}; exchange_ms={row['exchange_ms']:.4f} (bound {row['exchange_bound_ms']:.4f}, "
+        f"{row.get('exchange_rows', 0)} rows); K1, K2 launches a call fwd {fwd_launches} dx {dx_launches}; "
+        f"bitwise repeat ok")
+    return row
+
+
+def phase1_dist(ei: np.ndarray, w: np.ndarray, adj_single, dev) -> dict:
+    """The arxiv-scale graph in 4 parts on the card, each halo mode at
+    F=256; then gather_src_dist + edge_reduce_by_dst at the GAT width."""
+    from gnn_tpu_torch.parallel import edge_reduce_by_dst, gather_src_dist, make_mesh, partition_graph
+
+    mesh = make_mesh((DIST_PARTS,), ("data",), devices=[dev] * DIST_PARTS)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(N_NODES, DIST_F, device=dev, generator=gen)
+    g = torch.randn(N_NODES, DIST_F, device=dev, generator=gen)
+    rows = {}
+    for halo in ("allgather", "alltoall", "overlap"):
+        t0 = time.perf_counter()
+        dist = partition_graph(ei, w, num_nodes=N_NODES, mesh=mesh, halo=halo)
+        log(f"phase1-dist {halo}: partition into {DIST_PARTS} parts on the card in {time.perf_counter() - t0:.1f} s "
+            f"(n_max {dist.n_max}, e_max {dist.e_max})")
+        rows[halo] = dist_spmm_rows(f"phase1-dist spmm_dist {halo}", dist, adj_single, ei, x, g, dev)
+        if halo == "alltoall":
+            rows["gat_width"] = dist_edge_rows(dist, adj_single, dev)
+        del dist
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dist_edge_rows(dist, adj_single, dev) -> dict:
+    """gather_src_dist then edge_reduce_by_dst (K2) at [E, 8*32+8], against
+    single-device K1 with a null weight (the same sum), and the backward (K2
+    is gather_dst's transpose; K1 over the incidence and send CSRs)."""
+    from gnn_tpu_torch.parallel import edge_reduce_by_dst, gather_src_dist
+    from gnn_tpu_torch.parallel.halo import _GatherSrc
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(N_NODES, DIST_GAT_WIDTH, device=dev, generator=gen)
+    g = torch.randn(N_NODES, DIST_GAT_WIDTH, device=dev, generator=gen)
+    x_sh = dist.shard_nodes(x).requires_grad_()
+    out, fwd_launches = counted(lambda: edge_reduce_by_dst(dist, gather_src_dist(dist, x_sh)))
+    _, bwd_launches = counted(lambda: out.backward(dist.shard_nodes(g)))
+    err = compare("phase1-dist edge ops fwd", dist.unshard_nodes(out.detach()),
+                  csr_spmm(adj_single.row_ptr, adj_single.src, None, x), torch.float32)
+    err_dx = compare("phase1-dist edge ops dx", dist.unshard_nodes(x_sh.grad),
+                     csr_spmm(adj_single.t_row_ptr, adj_single.t_col, None, g), torch.float32)
+    xd = x_sh.detach()
+    edges = gather_src_dist(dist, xd)
+    check_repeat("phase1-dist edge_reduce_by_dst", lambda: edge_reduce_by_dst(dist, edges), (),
+                 edge_reduce_by_dst(dist, edges))
+    ge = torch.randn_like(edges)
+    vjp = lambda: _GatherSrc.backward(type("ctx", (), {"dist": dist})(), ge)[0]
+    check_repeat("phase1-dist gather_src_dist VJP", vjp, (), vjp())
+    row = dict(
+        err=max(err, err_dx), gather_ms=time_ms(lambda: gather_src_dist(dist, xd)),
+        reduce_ms=time_ms(lambda: edge_reduce_by_dst(dist, edges)), gather_vjp_ms=time_ms(vjp),
+        single_ms=time_ms(lambda: csr_spmm(adj_single.row_ptr, adj_single.src, None, x)),
+        edges_rows=edges.shape[0], launches_fwd=fwd_launches, launches_bwd=bwd_launches,
+    )
+    log(f"phase1-dist gather_src_dist + edge_reduce_by_dst alltoall [{edges.shape[0]}, {DIST_GAT_WIDTH}]: "
+        f"max_abs_err={row['err']:.3e} gather_ms={row['gather_ms']:.4f} reduce (K2) ms={row['reduce_ms']:.4f} "
+        f"gather VJP (K1 incidence + K1 send) ms={row['gather_vjp_ms']:.4f}; single-device K1 w null "
+        f"{row['single_ms']:.4f} ms; K1, K2 launches fwd {fwd_launches} bwd {bwd_launches}; bitwise repeat ok")
+    if fwd_launches != (0, 1) or bwd_launches != (2, 0):
+        raise AssertionError(f"phase1-dist edge ops launched {fwd_launches} / {bwd_launches}, not (0, 1) / (2, 0)")
+    return row
+
+
+def phase1_dist_blocked(clustered: np.ndarray, dev) -> dict:
+    """local_blocked=256 on the clustered graph: its community order packed
+    into 256-row windows, 4 parts, halo 'overlap' with the dense blocks."""
+    from gnn_tpu_torch.graphs import cluster_order
+    from gnn_tpu_torch.parallel import make_mesh, partition_graph
+
+    t0 = time.perf_counter()
+    perm = cluster_order(clustered, N_NODES, pack_rows=DIST_BLOCK)
+    old2new = np.empty(N_NODES, np.int64)
+    old2new[perm] = np.arange(N_NODES)
+    ei, w = gcn_norm(old2new[clustered], num_nodes=N_NODES, self_loops=True)
+    mesh = make_mesh((DIST_PARTS,), ("data",), devices=[dev] * DIST_PARTS)
+    dist = partition_graph(ei, w, num_nodes=N_NODES, mesh=mesh, halo="overlap", local_blocked=DIST_BLOCK)
+    adj_single = build_adjacency(ei, w, num_nodes=N_NODES).to(dev)
+    dense = int(dist.diag.count_nonzero())
+    log(f"phase1-dist local_blocked={DIST_BLOCK}: cluster order + partition {time.perf_counter() - t0:.1f} s; "
+        f"{dense} of {ei.shape[1]} edges in the blocks ({dense / ei.shape[1]:.4f})")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(N_NODES, DIST_F, device=dev, generator=gen)
+    g = torch.randn(N_NODES, DIST_F, device=dev, generator=gen)
+    row = dist_spmm_rows(f"phase1-dist spmm_dist overlap local_blocked={DIST_BLOCK}", dist, adj_single, ei, x, g, dev)
+    row["dense_share"] = dense / ei.shape[1]
+    return row
+
+
+def dist_config(cfg: Config, **dist) -> Config:
+    cfg.model.dropout = 0.0
+    cfg.dist.num_parts = DIST_PARTS
+    for key, value in dist.items():
+        setattr(cfg.dist, key, value)
+    return cfg
+
+
+def encoder_sgd_config() -> Config:
+    """EncoderGCN under SGD (momentum 0.9, lr 0.05) for the comparison of
+    two layouts: under Adam the bias of ``pre``'s last Linear, whose exact
+    gradient is 0 (the first conv's BatchNorm subtracts it), takes lr-sized
+    steps on rounding noise that differ between any two summation orders
+    (tests/test_torch_encoder.py), and the loss curves drift apart by about
+    1e-4 in 5 epochs."""
+    cfg = arxiv_encoder_config()
+    cfg.optim.name, cfg.optim.lr, cfg.optim.momentum = "sgd", 0.05, 0.9
+    return cfg
+
+
+def phase2_dist(data: Data, dev) -> dict:
+    """fit on 4 parts of the card at arxiv scale, dropout 0, 5 epochs: the
+    GCN 3 x 256 (halo 'alltoall'), the GAT 2 x 8 x 32 and EncoderGCN (under
+    SGD), each against the single-device fit of the same config and initial
+    weights (losses at rtol 1e-4)."""
+    runs, ms = {}, {}
+    for name, make, want in (
+        ("gcn", arxiv_gcn_config, k1_only(45)),
+        # a GAT layer: forward K2 (numerator and denominator together),
+        # backward K2 (gather_dst's VJP) and K1 twice (incidence, send), and
+        # the evaluation's forward K2
+        ("gat", arxiv_gat_config, {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "blocked_matvec": 0}),
+        ("encoder_gcn", encoder_sgd_config, k1_only(30)),
+    ):
+        single = dist_config(make())
+        single.dist.num_parts = 0
+        _, _, want_hist = fit(single, data, device=dev, verbose=False)
+        label = f"phase2-dist {name}"
+        runs[name] = train_phase(label, dist_config(make(), halo="alltoall"), data, dev, want)
+        got = [h["loss"] for h in runs[name][3]]
+        ref = [h["loss"] for h in want_hist]
+        if not np.allclose(got, ref, rtol=1e-4, atol=0.0):
+            raise AssertionError(f"{label}: losses {got} on 4 parts, {ref} on one device")
+        single_ms = float(np.median([h["step_ms"] for h in want_hist][1:]))
+        ms[name] = dict(parts=runs[name][2], single=single_ms)
+        log(f"{label}: losses equal the single-device fit's (rtol 1e-4, max rel diff "
+            f"{max(abs(a - b) / abs(b) for a, b in zip(got, ref)):.2e}); median step ms 4 parts "
+            f"{runs[name][2]:.3f} against one device {single_ms:.3f}")
+    log(f"phase2-dist median step ms (4 parts, one device): {json.dumps(ms)}")
+    return {f"{name}-dist": run for name, run in runs.items()}
+
+
+def phase2_dp_sampled(data: Data, dev) -> tuple:
+    """Data-parallel sampled minibatches: GraphSAGE 3 x 256, batch 1024 as 4
+    parts of 256 seeds, each with its own generator, fanouts [15, 10, 5], 20
+    steps; the loss is the parts' mean and must fall. A part runs K1 on its
+    3 hops forward and 2 dx; each logged step's full-graph evaluation 3."""
+    cfg = arxiv_sampled_config("sage", SAGE_FANOUTS, 20)
+    cfg.dist.num_parts = DIST_PARTS
+    steps, L = cfg.train.epochs, cfg.model.num_layers
+    want = k1_only(steps * DIST_PARTS * (2 * L - 1) + steps * L)
+    return train_phase("phase2-dp-sampled", cfg, data, dev, want, falling=True)
+
+
+def dist_card_vs_cpu(dev) -> None:
+    """Small graph, 4 parts: every model on the card's partition against the
+    CPU's, logits and gradients (EncoderGCN in training mode with the
+    validity mask); then dryrun_multichip(4) on the card."""
+    from gnn_tpu_torch.entry import dryrun_multichip
+    from gnn_tpu_torch.parallel import make_mesh, shard_node_array
+
+    data = stochastic_block_model(num_nodes=400, num_classes=4, seed=3)
+    F = data.num_features
+    cases = (
+        ("GCN", "sym", lambda g: GCN(F, 32, 4, num_layers=3, dropout=0.0, generator=g)),
+        ("GAT", None, lambda g: GAT(F, 8, 4, heads=4, dropout=0.0, generator=g)),
+        ("GraphSAGE mean", "sym", lambda g: GraphSAGE(F, 32, 4, num_layers=3, aggr="mean", dropout=0.0, generator=g)),
+        ("GraphSAGE max", None, lambda g: GraphSAGE(F, 32, 4, num_layers=3, aggr="max", dropout=0.0, generator=g)),
+        ("GIN", "sym", lambda g: GIN(F, 32, 4, num_layers=3, generator=g)),
+        ("EncoderGCN", "sym", lambda g: EncoderGCN(F, 4, num_layers=2, generator=g)),
+    )
+    for label, norm, make in cases:
+        outs = []
+        for device in (torch.device("cpu"), dev):
+            mesh = make_mesh((DIST_PARTS,), ("data",), devices=[device] * DIST_PARTS)
+            dist = data.to_dist_graph(mesh=mesh, norm=norm)
+            x = shard_node_array(dist, data.x, mesh)
+            valid = dist.shard_nodes(torch.ones(data.num_nodes, dtype=torch.bool, device=device), fill=False)
+            model = make(torch.Generator().manual_seed(0)).to(device)
+            kwargs = {"mask": valid} if label == "EncoderGCN" else {}
+            out = model(x, dist, **kwargs)
+            cross_entropy(out, dist.shard_nodes(data.y.to(device)), valid).backward()
+            outs.append((out.detach().cpu(), {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None}))
+        compare(f"phase3 dist {label} logits (card vs CPU)", outs[1][0], outs[0][0], torch.float32)
+        for name, grad in outs[0][1].items():
+            compare(f"phase3 dist {label} grad {name}", outs[1][1][name], grad, torch.float32)
+        log(f"phase3 dist {label} on {DIST_PARTS} parts: logits and {len(outs[0][1])} grads, card matches CPU")
+    t0 = time.perf_counter()
+    dryrun_multichip(DIST_PARTS, device=dev)
+    log(f"phase3 dryrun_multichip({DIST_PARTS}) on the card: ok ({time.perf_counter() - t0:.1f} s)")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def world_of_one(dev) -> None:
+    """A torch.distributed group of one process (NCCL on a local address):
+    spmm_dist and gather_src_dist's VJP through the group's collectives
+    equal the in-process result bit for bit, in each halo mode; then the
+    group is destroyed."""
+    import torch.distributed as tdist
+
+    from gnn_tpu_torch.parallel import gather_src_dist, make_mesh, multihost, partition_graph, spmm_dist
+
+    data = stochastic_block_model(num_nodes=4000, num_classes=4, seed=8)
+    ei, w = gcn_norm(data.edge_index.numpy(), num_nodes=data.num_nodes, self_loops=True)
+    alone = {h: partition_graph(ei, w, num_nodes=data.num_nodes, mesh=make_mesh(
+        (DIST_PARTS,), ("data",), devices=[dev] * DIST_PARTS), halo=h) for h in ("allgather", "alltoall", "overlap")}
+    multihost.initialize(f"localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        mesh = make_mesh((DIST_PARTS,), ("data",), devices=[dev] * DIST_PARTS)
+        if not mesh.grouped:
+            raise AssertionError("world of one: the mesh does not ride the process group")
+        for halo, ref in alone.items():
+            dist = partition_graph(ei, w, num_nodes=data.num_nodes, mesh=mesh, halo=halo)
+            x = dist.shard_nodes(torch.randn(data.num_nodes, 64, generator=torch.Generator().manual_seed(1)).to(dev))
+            results = []
+            for d in (ref, dist):
+                xr = x.clone().requires_grad_()
+                out = spmm_dist(d, xr)
+                out.backward(torch.ones_like(out))
+                xe = x.clone().requires_grad_()
+                gather_src_dist(d, xe).sum().backward()
+                results.append((out.detach(), xr.grad, xe.grad))
+            for name, a, b in zip(("fwd", "dx", "gather_src VJP"), *results):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"world of one {halo} {name}: the group's result differs from the in-process one")
+            log(f"phase3 world-of-one NCCL group, {halo}: spmm_dist fwd, dx and the gather_src_dist VJP "
+                f"equal the in-process results bit for bit")
+    finally:
+        tdist.destroy_process_group()
+    log(f"phase3 world-of-one group destroyed: {not tdist.is_initialized()}")
 
 
 def main() -> int:
@@ -1466,6 +1763,7 @@ def main() -> int:
     phase1_gat(adj, dev, checks, by_graph)
     phase1_unweighted(adj, dev, checks)
     phase1_hop(dev, checks)
+    log(f"phase1-dist rows: {json.dumps(phase1_dist(ei, w, adj, dev))}")
     del adj
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1484,6 +1782,7 @@ def main() -> int:
     log(f"clustered graph: {N_NODES} nodes, {clustered.shape[1]} undirected edges, "
         f"generated in {time.perf_counter() - t0:.1f} s")
     phase1_blocked(clustered, dev, checks, by_graph)
+    log(f"phase1-dist local_blocked row: {json.dumps(phase1_dist_blocked(clustered, dev))}")
     log_by_graph("K1 F=256 fwd", by_graph["K1"])
     log_by_graph(f"K3 (H,F)={GAT_HEADS[0]} fwd", by_graph["K3"])
     data = arxiv_scale_data(edges)
@@ -1493,14 +1792,16 @@ def main() -> int:
         "gat": phase2_gat(data, dev), "encoder_gcn": phase2_encoder(data, dev),
         "sage": phase2_sage(data, dev), "gin": phase2_gin(data, dev),
     })
+    runs.update(phase2_dist(data, dev))
     del data
     sampled = arxiv_scale_data(edges, signal=1.0)
-    runs.update({"sage-sampled": phase2_sampled_sage(sampled, dev), "gat-sampled": phase2_sampled_gat(sampled, dev)})
+    runs.update({"sage-sampled": phase2_sampled_sage(sampled, dev), "gat-sampled": phase2_sampled_gat(sampled, dev),
+                 "sage-dp-sampled": phase2_dp_sampled(sampled, dev)})
     del sampled
     runs["sage-host"] = phase2_host(edges, dev)
     cluster_runs = phase2_cluster(arxiv_scale_data(clustered), dev)
     runs.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})
-    by_path = {path: launches for path, (launches, _, _) in runs.items()}
+    by_path = {path: run[0] for path, run in runs.items()}
     phase2_stream(edges, dev)
     phase3(dev)
 
@@ -1529,7 +1830,7 @@ def main() -> int:
             ms=row["ms"], ms_id_order=None if id_row is None else id_row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"],
-            launches_per_step={path: per_step[name] for path, (_, per_step, _) in runs.items()},
+            launches_per_step={path: run[1][name] for path, run in runs.items()},
         ))
     log(f"launches by path: {json.dumps(by_path)}")
     log(nvidia_smi())

@@ -12,17 +12,21 @@ space where there is one; these directed edges are not degree-symmetric, so
 the ids stay, as in the JAX package), and returns the forward and its
 arguments. Its first call on the card builds the kernels (K1) from the
 repository's sources.
-:func:`dryrun_multichip` waits for the multi-device port and raises.
+:func:`dryrun_multichip` is the JAX package's multi-device dry run over the
+parts of one process on the caller's device.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from gnn_tpu_torch.graphs import Data
-from gnn_tpu_torch.graphs.generate import power_law
-from gnn_tpu_torch.models import GCN
+from gnn_tpu_torch.graphs.generate import power_law, stochastic_block_model
+from gnn_tpu_torch.models import GAT, GCN, GIN
+from gnn_tpu_torch.nn.losses import cross_entropy
 
 __all__ = ["entry", "dryrun_multichip"]
 
@@ -58,10 +62,44 @@ def entry(device="cuda"):
     return fn, (model.to(device).eval(), data.x.to(device), adj.to(device))
 
 
-def dryrun_multichip(n_devices: int) -> None:
-    """The JAX package's multi-device dry run (``__graft_entry__.py``):
-    waits for the multi-device port (ROADMAP Queue 1 item 15) and raises."""
-    raise NotImplementedError(
-        f"dryrun_multichip({n_devices}) needs the multi-device port, which is not "
-        "there yet (ROADMAP Queue 1 item 15)"
-    )
+def dryrun_multichip(n_devices: int, device="cuda") -> None:
+    """The first half of the JAX package's multi-device dry run
+    (``__graft_entry__.py:108-163``) over ``n_devices`` parts of one process
+    on ``device``: ``fit`` of the GCN with halo 'alltoall', again with
+    ``dist.local_blocked=8`` (the community order, halo 'overlap'), the
+    flagship ``encoder_gcn`` (mask-aware BatchNorm), then a distributed GAT's
+    loss and gradient and a distributed GIN's loss; every loss must be
+    finite. Its ``DistEdgeStream`` part (:165-176) and its tensor-parallel
+    half over a (data, model) mesh (:178-231) wait for the next slice of
+    ROADMAP Queue 1 item 15."""
+    from gnn_tpu_torch.parallel import make_mesh, shard_node_array
+    from gnn_tpu_torch.train import Config, fit
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("dryrun_multichip(device='cuda') needs a CUDA device; none is available")
+    data = stochastic_block_model(num_nodes=16 * n_devices, num_classes=4, seed=0)
+    cfg = Config()
+    cfg.model.name, cfg.model.hidden, cfg.model.dropout = "gcn", 32, 0.0
+    cfg.train.epochs, cfg.train.eval_every = 2, 1
+    cfg.dist.num_parts, cfg.dist.halo = n_devices, "alltoall"
+    for overrides in ({}, {"dist.local_blocked": 8}, {"model.name": "encoder_gcn"}):
+        _, _, history = fit(cfg.apply_overrides([f"{k}={v}" for k, v in overrides.items()]), data,
+                            device=device, verbose=False)
+        if not history or not math.isfinite(history[-1]["loss"]):
+            raise AssertionError(f"dryrun_multichip: fit {overrides or 'gcn'} gave {history}")
+
+    mesh = make_mesh((n_devices,), ("data",), devices=[device] * n_devices)
+    dist = data.to_dist_graph(mesh=mesh, norm=None, halo="alltoall")
+    x = shard_node_array(dist, data.x, mesh)
+    y = dist.shard_nodes(data.y.to(device))
+    train = dist.shard_nodes(data.train_mask.to(device), fill=False)
+    gen = torch.Generator().manual_seed(1)
+    for name, model in (("GAT", GAT(16, 16, 4, heads=2, dropout=0.0, generator=gen)),
+                        ("GIN", GIN(16, 16, 4, generator=gen))):
+        model = model.to(device)
+        loss = cross_entropy(model(x, dist), y, train)
+        loss.backward()
+        grads = [p.grad for p in model.parameters() if p.requires_grad]
+        if not math.isfinite(loss.item()) or not all(torch.isfinite(g).all() for g in grads):
+            raise AssertionError(f"dryrun_multichip: non-finite {name} loss {loss.item()} or gradient")

@@ -6,7 +6,8 @@ as int64, float targets in their own dtype, any trailing shape) and the
 train/val/test masks, held as torch tensors. ``to(device)`` moves them;
 ``to_adjacency`` runs the one-time host prep (exact ``gcn_norm`` and the CSR
 build) and returns an :class:`~gnn_tpu_torch.graphs.adjacency.Adjacency` on
-the CPU; ``permute_nodes`` moves the node arrays into a relabelled order.
+the CPU, ``to_dist_graph`` the same prep partitioned over a mesh's parts;
+``permute_nodes`` moves the node arrays into a relabelled order.
 ``Data(host_arrays=True)`` keeps every array as host numpy (``x`` may be an
 ``np.memmap``) for ``train.host_features``, which samples and gathers on the
 host; such a ``Data`` never moves to a device.
@@ -193,6 +194,41 @@ class Data:
         elif add_self_loops:
             ei, ew = transforms.add_remaining_self_loops(ei, ew, num_nodes=self.num_nodes)
         return build_adjacency(ei, ew, num_nodes=self.num_nodes, reorder=reorder, **build_kwargs)
+
+    def to_dist_graph(
+        self,
+        *,
+        mesh,
+        halo: str = "alltoall",
+        axis_name: str = "data",
+        add_self_loops: bool = True,
+        norm: Optional[str] = "sym",
+        improved: bool = False,
+        local_blocked: int = 0,
+        block_dtype: Optional[torch.dtype] = None,
+    ):
+        """Multi-device counterpart of :meth:`to_adjacency`: the same
+        normalization prep, then a node partition over the mesh's
+        ``axis_name`` axis, on the mesh's device
+        (:func:`~gnn_tpu_torch.parallel.partition_graph`).
+        ``local_blocked=R`` (halo='overlap') moves each part's local
+        intra-window edges into dense blocks; pair it with a
+        ``graphs.cluster_order(..., pack_rows=R)`` relabelling first."""
+        from gnn_tpu_torch.parallel.partition import partition_graph
+
+        ei, ew = _numpy(self.edge_index), _numpy(self.edge_attr)
+        if ew is not None and ew.ndim > 1:
+            ew = None
+        if norm in ("sym", "rw", "row"):
+            ei, ew = transforms.gcn_norm(
+                ei, ew, self.num_nodes, self_loops=add_self_loops, improved=improved, norm=norm,
+            )
+        elif add_self_loops:
+            ei, ew = transforms.add_remaining_self_loops(ei, ew, num_nodes=self.num_nodes)
+        return partition_graph(
+            ei, ew, num_nodes=self.num_nodes, mesh=mesh, axis_name=axis_name, halo=halo,
+            local_blocked=local_blocked, block_dtype=block_dtype,
+        )
 
     def permute_nodes(self, perm) -> "Data":
         """Relabel nodes so that new id i is old id ``perm[i]`` (new -> old):

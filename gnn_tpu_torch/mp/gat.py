@@ -15,7 +15,11 @@ sum_j ex_ij h_j runs on K3 (``ops/cuda/spmm_heads.py``) without the
 [E, H * F] message array, and the denominator sum_j ex_ij on K2. Dropout
 applies to the numerator's weights only. With the same dropout mask this
 equals the JAX package's non-flash path (softmax, dropout of alpha, sum)
-too, so the port has one path.
+too, so the port has one path. On a node-partitioned
+:class:`~gnn_tpu_torch.parallel.DistGraph` (x in its padded layout) the
+layer is the JAX package's ``_forward_dist``: one exchange moves ``[h |
+a_src . h]``, the softmax is local to each destination's part, and the
+numerator and denominator reduce together by destination (K2).
 
 ``message_dtype`` (None = x's dtype) is the dtype of h and a_src . h on the
 edges, as in the JAX package; scores, softmax and denominator stay float32.
@@ -103,6 +107,11 @@ class GATConv(MessagePassing):
         with ``return_attention`` also alpha [E, H] in the adjacency's edge
         order (after dropout in training mode, as in the JAX package)."""
         if not isinstance(adj, Adjacency):
+            if return_attention:
+                raise ValueError(
+                    "return_attention is single-device only (per-edge alphas live in the "
+                    "parts' local edge orders)"
+                )
             return self._forward_dist(x, adj, generator=generator)
         N, H, F = x.shape[0], self.heads, self.out_features
         n_out = adj.num_dst_nodes
@@ -128,7 +137,37 @@ class GATConv(MessagePassing):
             return out, ex_num / den.index_select(0, adj.dst.long())
         return out
 
-    def _forward_dist(self, x, dist, *, generator=None):
-        raise NotImplementedError(
-            "GATConv over a partitioned graph is not ported yet (ROADMAP Queue 1 item 15)"
+    def _forward_dist(self, x: torch.Tensor, dist, *, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Port of ``gnn_tpu/mp/gat.py::_forward_dist`` (flash style, scores
+        and softmax in float32)."""
+        from gnn_tpu_torch.parallel.halo import (
+            edge_reduce_by_dst,
+            edge_valid_mask,
+            gather_dst_dist,
+            gather_src_dist,
         )
+
+        H, F = self.heads, self.out_features
+        N = x.shape[0]  # L n_max
+        h = self.lin(x)  # padding rows stay zero (no bias)
+        hh = h.view(N, H, F)
+        alpha_src = torch.einsum("nhf,hf->nh", hh, self.att_src.to(h.dtype))
+        alpha_dst = torch.einsum("nhf,hf->nh", hh, self.att_dst.to(h.dtype))
+        ecat = gather_src_dist(dist, torch.cat([h, alpha_src], dim=1))  # one exchange: [E, H F + H]
+        h_src = ecat[:, : H * F].view(-1, H, F)
+        e = leaky_relu(ecat[:, H * F :].float() + gather_dst_dist(dist, alpha_dst).float(), self.negative_slope)
+        valid = edge_valid_mask(dist)[:, None]
+        neg = torch.finfo(e.dtype).min
+        e = torch.where(valid, e, torch.full_like(e, neg))
+        m = edge_reduce_by_dst(dist, e.detach(), op="max")  # per-segment shift, local
+        m = torch.where(m > neg / 2, m, torch.zeros_like(m))  # empty / padding-only segments
+        ex = torch.exp(e - gather_dst_dist(dist, m))
+        ex = torch.where(valid, ex, torch.zeros_like(ex))
+        ex_num = dropout_fn(ex, self.dropout_rate, training=self.training, generator=generator)
+        combined = torch.cat([(ex_num[:, :, None] * h_src.float()).reshape(-1, H * F), ex], dim=1)
+        agg = edge_reduce_by_dst(dist, combined)  # [N, H F + H]
+        out = agg[:, : H * F].view(N, H, F) / agg[:, H * F :].clamp_min(1e-16)[:, :, None]
+        out = out.reshape(N, H * F) if self.concat else out.mean(dim=1)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out

@@ -11,7 +11,10 @@ clamped to 1 (``segment_mean``'s denominator), not by its weight sum. ``max``
 has no kernel in the JAX package either: it is ``scatter_reduce('amax')``
 over the weighted messages, with the rows of destinations without in-edges
 set to 0. With a bipartite adjacency (a sampled hop: fewer destinations than
-sources) pass ``x_dst``.
+sources) pass ``x_dst``. On a node-partitioned
+:class:`~gnn_tpu_torch.parallel.DistGraph` (x in its padded layout) sum and
+mean run ``spmm_dist`` and divide by the partition's in-degrees; max gathers
+the source rows per edge and takes the per-destination max.
 """
 
 from __future__ import annotations
@@ -76,8 +79,27 @@ class SAGEConv(MessagePassing):
             out = out / torch.linalg.norm(out, dim=-1, keepdim=True).clamp_min(1e-12)
         return out
 
-    def _forward_dist(self, x, dist):
-        raise NotImplementedError(
-            "SAGEConv over a node-partitioned graph (multi-device) is not ported yet "
-            "(ROADMAP Queue 1 item 15)"
-        )
+    def _forward_dist(self, x: torch.Tensor, dist) -> torch.Tensor:
+        """Port of ``gnn_tpu/mp/sage.py::_forward_dist``: the single-device
+        semantics (baked weights scale the messages, 'mean' divides by the
+        edge count) over the parts."""
+        from gnn_tpu_torch.parallel.halo import edge_reduce_by_dst, gather_src_dist
+
+        deg = dist.in_degree.reshape(-1)
+        if self.aggr in ("mean", "sum"):
+            agg = spmm(dist, x)
+            if self.aggr == "mean":
+                agg = agg / deg.clamp_min(1.0)[:, None].to(agg.dtype)
+        else:
+            if dist.has_weight:
+                raise ValueError(
+                    "SAGE aggr='max' on a weight-baked DistGraph: the single-device path maxes "
+                    "WEIGHTED messages, but baked weights are not exposed in the edge-parallel "
+                    "order; partition_graph without edge_weight for max aggregation"
+                )
+            agg = edge_reduce_by_dst(dist, gather_src_dist(dist, x), op="max")
+            agg = torch.where(deg[:, None] > 0, agg, torch.zeros_like(agg))  # -inf on deg-0 rows
+        out = self.lin_self(x) + self.lin_neigh(agg)
+        if self.normalize:
+            out = out / torch.linalg.norm(out, dim=-1, keepdim=True).clamp_min(1e-12)
+        return out

@@ -1,8 +1,9 @@
 """The C++ graph core, bound with ctypes.
 
-The port compiles the JAX package's own source file,
-``gnn_tpu/native/graph_native.cpp`` (read as a file; the ``gnn_tpu`` package
-is never imported), with ``g++`` and the same flags, at first use, into
+The port compiles its own copy of the graph core's source,
+``gnn_tpu_torch/native/graph_native.cpp`` (the JAX package's
+``graph_native.cpp`` as it stands; the port reads no file of ``gnn_tpu``),
+with ``g++`` and the same flags, at first use, into
 ``build/gnn_tpu_torch/`` at the root of the checkout. The library's file name
 carries a hash of the source, the flags and the host name (``-march=native``
 makes the binary fit only the CPU it was built on), so an edited source, or
@@ -16,7 +17,8 @@ must equal the JAX package's.
 Wrappers, with the JAX package's names and signatures: :func:`sort_edges_csr`,
 :func:`degrees`, :func:`sample_neighbors_host` (the same source and seed give
 the JAX package's draws exactly), :func:`label_propagation`,
-:func:`cluster_pack` and :func:`refine_windows`.
+:func:`cluster_pack`, :func:`refine_windows`, :func:`partition_by_edges` and
+:func:`louvain_cluster`.
 """
 
 from __future__ import annotations
@@ -35,11 +37,11 @@ import numpy as np
 
 __all__ = [
     "load", "sort_edges_csr", "degrees", "sample_neighbors_host", "label_propagation", "cluster_pack",
-    "refine_windows",
+    "refine_windows", "partition_by_edges", "louvain_cluster",
 ]
 
 _REPO = pathlib.Path(__file__).resolve().parents[2]
-_SRC = _REPO / "gnn_tpu" / "native" / "graph_native.cpp"
+_SRC = pathlib.Path(__file__).resolve().parent / "graph_native.cpp"
 FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -233,3 +235,45 @@ def cluster_pack(labels, rows: int) -> np.ndarray:
         _ptr(out, ctypes.c_int64),
     )
     return out
+
+
+def partition_by_edges(row_ptr, num_parts: int) -> np.ndarray:
+    """Contiguous node-range partition balanced by in-edge count: int64
+    boundaries [num_parts + 1], part p owning nodes [b[p], b[p + 1])."""
+    row_ptr = _i64(row_ptr)
+    if len(row_ptr) < 1 or row_ptr[0] != 0 or (np.diff(row_ptr) < 0).any():
+        raise ValueError("row_ptr must be CSR offsets")
+    if num_parts < 1:
+        raise ValueError(f"num_parts must be positive, got {num_parts}")
+    out = np.empty(num_parts + 1, np.int64)
+    load().partition_by_edges(len(row_ptr) - 1, int(num_parts), _ptr(row_ptr, ctypes.c_int64), _ptr(out, ctypes.c_int64))
+    return out
+
+
+def louvain_cluster(
+    row_ptr,
+    col,
+    *,
+    weight=None,
+    max_levels: int = 10,
+    max_sweeps: int = 10,
+    max_size: int = 0,
+    resolution: float = 1.0,
+    seed: int = 0,
+) -> Tuple[np.ndarray, int]:
+    """Size-capped Louvain community detection over a CSR of the symmetrized
+    graph: modularity local moves and graph aggregation, with a cap of
+    ``max_size`` nodes a community (0: none). Weights, where given, must be
+    positive. Returns ``(label [N] int64 compacted to 0..k-1, k)``."""
+    row_ptr, col = _i64(row_ptr), _i64(col)
+    _check_csr(row_ptr, col)
+    w = None if weight is None else np.ascontiguousarray(weight, np.float32)
+    if w is not None and w.shape != col.shape:
+        raise ValueError(f"weight must have one value per entry of col, got {w.shape}")
+    out = np.empty(len(row_ptr) - 1, np.int64)
+    k = load().louvain_cluster(
+        len(row_ptr) - 1, _ptr(row_ptr, ctypes.c_int64), _ptr(col, ctypes.c_int64), _ptr(w, ctypes.c_float),
+        int(max_levels), int(max_sweeps), int(max_size), ctypes.c_double(resolution), ctypes.c_uint64(seed),
+        _ptr(out, ctypes.c_int64),
+    )
+    return out, int(k)

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 __all__ = [
     "H100_BYTES_PER_S", "H100_F32_FLOPS", "H100_BF16_FLOPS", "Bound",
     "csr_spmm_bound", "segment_sum_bound", "csr_spmm_heads_bound", "blocked_matvec_bound",
-    "blocked_layout_cost_ms",
+    "blocked_layout_cost_ms", "exchange_bound",
 ]
 
 # NVIDIA's data sheet, H100 SXM at its full 700 W power limit.
@@ -126,3 +126,11 @@ def blocked_layout_cost_ms(
         2 * blocks * F / block_rate + remainder.operations / H100_F32_FLOPS,
     )
     return seconds * 1e3
+
+
+def exchange_bound(n_slots: int, F: int, itemsize: int) -> Bound:
+    """The halo exchange of ``parallel/halo.py`` within one card: each of
+    ``n_slots`` received rows read once and written once, with its int64
+    gather index (the rows a collective would carry between cards)."""
+    moved = n_slots * (2 * F * itemsize + 8)
+    return Bound(bytes=moved, noreuse_bytes=moved, operations=0)

@@ -17,7 +17,11 @@ e=(s -> d) of w_e * x[s], differentiable in x (dx = A^T g) and, through
   layout constants, with no dw, as in JAX.
 
 ``'auto'`` takes ``blocked`` where that layout exists and K1 otherwise; the
-retired ``'pallas'`` raises, as in the JAX package. :func:`spmm_coo` is the
+retired ``'pallas'`` raises, as in the JAX package. A node-partitioned
+:class:`~gnn_tpu_torch.parallel.DistGraph` routes to
+:func:`~gnn_tpu_torch.parallel.spmm_dist` (``gnn_tpu/ops/spmm.py:259-319``),
+so GCN, GIN and EncoderGCN run on it unchanged; its ``with_weight(None)``
+view of a weight-baked partition takes the dynamic path with unit weights. :func:`spmm_coo` is the
 one-off product over a bare COO edge list, without a prepared adjacency:
 plain torch on every device. On the CPU the kernels' plain versions run.
 """
@@ -68,6 +72,8 @@ def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Ten
     """
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
+    if not isinstance(adj, Adjacency):
+        return _spmm_dist(adj, x)
     if backend == "auto":
         backend = "blocked" if adj.blocked is not None else "segment"
     if backend == "blocked":
@@ -92,10 +98,28 @@ def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Ten
 
 def spmm_edge_weighted(adj: Adjacency, weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """SpMM with caller-supplied differentiable per-edge weights, in the
-    adjacency's dst-sorted edge order, over the CSR (K1)."""
+    adjacency's dst-sorted edge order, over the CSR (K1). On a
+    ``DistGraph`` the weights are [P E_max] in the parts' local dst-sorted
+    edge order, zeros at the padding slots (``parallel.edge_valid_mask``)."""
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
+    if not isinstance(adj, Adjacency):
+        from gnn_tpu_torch.parallel.halo import spmm_dist_dynw
+
+        return spmm_dist_dynw(adj, weight, x)
     return spmm_csr(adj, x, weight)
+
+
+def _spmm_dist(dist, x: torch.Tensor) -> torch.Tensor:
+    from gnn_tpu_torch.parallel.halo import edge_valid_mask, spmm_dist, spmm_dist_dynw
+
+    if dist.mesh is None:
+        raise ValueError("DistGraph has no mesh: partition_graph(..., mesh=mesh)")
+    if dist.unit_weight and dist.has_weight:
+        # with_weight(None) of a weight-baked partition: ones at real edges,
+        # zeros at padding slots
+        return spmm_dist_dynw(dist, edge_valid_mask(dist).float(), x)
+    return spmm_dist(dist, x, dist.mesh, axis_name=dist.axis_name)
 
 
 def _coo_messages(src, x, weight):

@@ -32,15 +32,36 @@ stopping on validation accuracy and checkpoints
 ``encoder_gcn`` (BatchNorm buffers: updated by the train step, read by the
 evaluation, returned in the middle slot), ``sage`` (scales its messages by
 the ``gcn_norm`` weights, as the JAX ``fit`` hands them to every model) and
-``gin`` (drops them). Multi-device partitions (``dist.num_parts > 1``, with
-or without sampling) are not ported yet: their settings raise
-``NotImplementedError`` (ROADMAP Queue 1 item 15).
+``gin`` (drops them).
+
+With ``dist.num_parts = P > 1`` (``gnn_tpu/train/loop.py:135-324``):
+
+* **full graph, partitioned**: the graph goes into P parts on ``device``
+  (``Data.to_dist_graph``, halo ``dist.halo``; ``dist.cluster_order`` or
+  ``dist.local_blocked`` relabel the nodes by community first, and
+  ``local_blocked`` forces halo 'overlap', warning where another was asked
+  for), features, labels and masks into its padded layout (masks ``False``
+  on the padding rows, so that the loss and the accuracies leave them out;
+  without a ``train_mask`` the loss takes every real node, where the JAX
+  ``fit`` would average over the padding rows too),
+  and the model runs on the ``DistGraph`` (``parallel/``). A model with
+  buffers (BatchNorm) must take a ``mask`` keyword, which leaves the padding
+  rows out of its statistics; the evaluation runs on the padded layout;
+* **data-parallel sampled minibatches** (with ``train.batch_size``): each of
+  the P parts samples ``batch_size / P`` of the step's seeds with its own
+  generator, and the loss is the mean of the parts' losses.
+
+Both hold every part in this process, on one device; ``fit`` in a
+``torch.distributed`` group of more than one process is not ported
+(``NotImplementedError``, ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -50,6 +71,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency
+from gnn_tpu_torch.graphs.blocked import cluster_order
 from gnn_tpu_torch.graphs.convert import as_numpy
 from gnn_tpu_torch.graphs.data import Data
 from gnn_tpu_torch.graphs.sampling import NeighborSampler
@@ -57,6 +79,7 @@ from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn.losses import accuracy, cross_entropy
 from gnn_tpu_torch.nn.state import buffer_state
 from gnn_tpu_torch.optim import SGD, Adam, AdamW, clip_by_global_norm
+from gnn_tpu_torch.parallel import make_mesh, multihost
 from gnn_tpu_torch.train.checkpoint import Checkpointer
 from gnn_tpu_torch.train.config import Config
 from gnn_tpu_torch.train.host_loader import HostBatchLoader
@@ -127,10 +150,11 @@ def _check_supported(cfg: Config) -> None:
             "train.host_features is the single-process host-gather path; it does not "
             "combine with dist.num_parts"
         )
-    if cfg.dist.num_parts > 1:
+    if cfg.dist.num_parts > 1 and multihost.is_multihost():
         raise NotImplementedError(
-            "dist.num_parts > 1 (multi-device partitions and data-parallel sampling, "
-            "ROADMAP Queue 1 item 15) is not ported yet"
+            "fit over a torch.distributed group of more than one process (the gradient, loss and "
+            "BatchNorm all-reduce) is not ported yet (ROADMAP Queue 1 item 15); fit holds every part "
+            "of dist.num_parts in one process"
         )
     if str(t.reorder).lower() not in _REORDER:
         raise ValueError(f"unknown train.reorder '{t.reorder}'")
@@ -216,25 +240,24 @@ def host_evaluate(model: nn.Module, feed: _HostFeed, adjs, masks: dict, batch_si
     return out
 
 
-def _random_state(dropout_gen, sample_gen, rng_np, loader) -> dict:
+def _random_state(dropout_gen, sample_gens, rng_np, loader) -> dict:
     """What a resumed run needs beyond parameters, optimizer and buffers to
     continue bit for bit: every random stream's position."""
     state = {
         "dropout_generator": dropout_gen.get_state(),
         "seed_rng": json.dumps(rng_np.bit_generator.state),
+        "sampler_generators": [g.get_state() for g in sample_gens],
     }
-    if sample_gen is not None:
-        state["sampler_generator"] = sample_gen.get_state()
     if loader is not None:
         state["host_loader_seed"] = loader._seed
     return state
 
 
-def _restore_random_state(state: dict, dropout_gen, sample_gen, rng_np, loader) -> None:
+def _restore_random_state(state: dict, dropout_gen, sample_gens, rng_np, loader) -> None:
     dropout_gen.set_state(state["dropout_generator"])
     rng_np.bit_generator.state = json.loads(state["seed_rng"])
-    if sample_gen is not None:
-        sample_gen.set_state(state["sampler_generator"])
+    for gen, saved in zip(sample_gens, state["sampler_generators"]):
+        gen.set_state(saved)
     if loader is not None:
         loader._seed = int(state["host_loader_seed"])
 
@@ -245,8 +268,10 @@ class TrainStep:
     draws what the step draws (seeds, neighbours, dropout) and returns the
     step's loss, ready for ``backward``. The rest is what the step reads:
     ``data`` and ``adj`` as they lie on the device (``adj`` None with
-    ``train.host_features``, whose ``data`` stays where it was), the hop
-    adjacencies of a sampled step, the host feed, and the random streams."""
+    ``train.host_features``, whose ``data`` stays where it was; a partitioned
+    step's ``adj`` is its ``DistGraph`` and ``data`` its padded layout), the
+    hop adjacencies of a sampled step, the host feed, and the random streams
+    (a sampler generator a part: one without ``dist.num_parts``)."""
 
     loss: Callable[[], torch.Tensor]
     data: Data
@@ -254,19 +279,68 @@ class TrainStep:
     hop_adjs: Optional[list]
     feed: Optional[_HostFeed]
     dropout_gen: torch.Generator
-    sample_gen: Optional[torch.Generator]
+    sample_gens: list
     rng_np: np.random.Generator
+
+
+def _check_mask_kwarg(model: nn.Module) -> None:
+    """A model with buffers (BatchNorm running statistics) trains on the
+    padded layout only if its forward takes the validity ``mask``."""
+    if not any(True for _ in model.buffers()):
+        return
+    params = inspect.signature(model.forward).parameters
+    if "mask" in params or any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
+        return
+    raise ValueError(
+        f"{type(model).__name__} carries buffer state (BatchNorm running stats) but its forward "
+        "accepts no 'mask' kwarg: batch statistics over the padded distributed node layout would "
+        "fold padding rows in. Add mask support (see nn.BatchNorm / models.EncoderGCN) or train "
+        "on one device."
+    )
+
+
+def _partitioned(cfg: Config, data: Data, model: nn.Module, device: torch.device):
+    """The full graph in ``dist.num_parts`` parts on ``device``: (the padded
+    ``Data``, the ``DistGraph``, the model's extra keywords, the loss's
+    mask)."""
+    _check_mask_kwarg(model)
+    d = cfg.dist
+    mesh = make_mesh((d.num_parts,), (d.axis_name,), devices=[device] * d.num_parts)
+    halo, blocks = d.halo, int(d.local_blocked)
+    if blocks and halo != "overlap":
+        # local_blocked needs the local/remote edge split of 'overlap'; the
+        # default 'alltoall' moves silently, another choice with a warning
+        if halo != "alltoall":
+            warnings.warn(
+                f"dist.local_blocked={blocks} requires halo='overlap'; overriding dist.halo='{halo}'",
+                stacklevel=3,
+            )
+        halo = "overlap"
+    if d.cluster_order or blocks:
+        # community-contiguous ids: the node ranges cut between communities
+        # (exact: GNNs are permutation-equivariant)
+        data = data.permute_nodes(cluster_order(as_numpy(data.edge_index), data.num_nodes, pack_rows=blocks))
+    graph = data.to_dist_graph(mesh=mesh, halo=halo, axis_name=d.axis_name, local_blocked=blocks)
+    pad = lambda a, fill=0: None if a is None else graph.shard_nodes(a.to(device), fill=fill)
+    valid = pad(torch.ones(data.num_nodes, dtype=torch.bool), False)
+    masks = {f"{s}_mask": pad(getattr(data, f"{s}_mask"), False) for s in _SPLITS}
+    padded = Data(x=pad(data.x), y=pad(data.y), num_nodes=d.num_parts * graph.n_max, **masks)
+    # without a train_mask the loss takes every real node, none of the padding
+    loss_mask = valid if padded.train_mask is None else padded.train_mask
+    return padded, graph, {"mask": valid} if any(True for _ in model.buffers()) else {}, loss_mask
 
 
 def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) -> TrainStep:
     """The training step of ``cfg`` for ``model`` (already on ``device``)
-    over ``data``: the one-time prep of ``fit`` (adjacency, sampler or host
-    loader, moved to the device or left on the host) and the step's loss. A
-    sampled step marks its sampling and its gather for a profiler with the
-    ranges ``sampled.sample`` and ``sampled.gather``."""
+    over ``data``: the one-time prep of ``fit`` (adjacency or partition,
+    sampler or host loader, moved to the device or left on the host) and the
+    step's loss. A sampled step marks its sampling and its gather for a
+    profiler with the ranges ``sampled.sample`` and ``sampled.gather``."""
     t = cfg.train
     sampled = t.batch_size > 0
-    adj = sampler = sample_gen = feed = hop_adjs = None
+    n_parts = max(cfg.dist.num_parts, 1)
+    adj = sampler = feed = hop_adjs = None
+    sample_gens, kwargs, loss_mask = [], {}, None
     if sampled:
         if data.train_mask is None:
             raise ValueError("train.batch_size > 0 draws its seeds from data.train_mask, which is None")
@@ -280,6 +354,8 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
         )
         feed = _HostFeed(loader, device)
         hop_adjs = [a.to(device) for a in loader.adjacencies(t.batch_size)]
+    elif n_parts > 1 and not sampled:
+        data, adj, kwargs, loss_mask = _partitioned(cfg, data, model, device)
     else:
         # train.reorder: relabel the nodes by degree bucket or into
         # community-packed windows (exact: GNNs are permutation-equivariant;
@@ -292,27 +368,35 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
         adj = adj.to(device)
         data = data.to(device)
         if sampled:
+            # data-parallel: a generator and batch_size / P seeds a part
             sampler = NeighborSampler(data, t.fanouts).to(device)
-            sample_gen = torch.Generator(device=device).manual_seed(t.seed + 2)
-            hop_adjs = sampler.adjacencies(t.batch_size)
+            sample_gens = [torch.Generator(device=device).manual_seed(t.seed + 2 + p) for p in range(n_parts)]
+            hop_adjs = sampler.adjacencies(t.batch_size // n_parts)
     dropout_gen = torch.Generator(device=device).manual_seed(t.seed + 1)
     rng_np = np.random.default_rng(t.seed)
 
-    def loss() -> torch.Tensor:
-        if not sampled:
-            return cross_entropy(model(data.x, adj, generator=dropout_gen), data.y, data.train_mask)
-        seeds = rng_np.choice(train_ids, t.batch_size)
-        if feed is not None:
-            feats, ys = feed(seeds)
-            return cross_entropy(model.forward_sampled(feats, hop_adjs, generator=dropout_gen), ys)
+    def sampled_loss(gen: torch.Generator, seeds: np.ndarray) -> torch.Tensor:
         with record_function("sampled.sample"):
             seeds = torch.from_numpy(seeds).to(device)
-            nodes, adjs = sampler.sample(sample_gen, seeds)
+            nodes, adjs = sampler.sample(gen, seeds)
         with record_function("sampled.gather"):
             feats, ys = data.x.index_select(0, nodes), data.y.index_select(0, seeds)
         return cross_entropy(model.forward_sampled(feats, adjs, generator=dropout_gen), ys)
 
-    return TrainStep(loss, data, adj, hop_adjs, feed, dropout_gen, sample_gen, rng_np)
+    def loss() -> torch.Tensor:
+        if not sampled:
+            mask = data.train_mask if loss_mask is None else loss_mask
+            return cross_entropy(model(data.x, adj, generator=dropout_gen, **kwargs), data.y, mask)
+        seeds = rng_np.choice(train_ids, t.batch_size)
+        if feed is not None:
+            feats, ys = feed(seeds)
+            return cross_entropy(model.forward_sampled(feats, hop_adjs, generator=dropout_gen), ys)
+        if n_parts == 1:
+            return sampled_loss(sample_gens[0], seeds)
+        losses = [sampled_loss(gen, part) for gen, part in zip(sample_gens, np.split(seeds, n_parts))]
+        return torch.stack(losses).mean()
+
+    return TrainStep(loss, data, adj, hop_adjs, feed, dropout_gen, sample_gens, rng_np)
 
 
 def fit(
@@ -366,11 +450,11 @@ def fit(
         )
     model = model.to(device)
     model.train()
-    masks = _split_masks(data)
+    masks, num_edges = _split_masks(data), data.num_edges
     train_step = build_step(cfg, data, model, device)
     data, adj, feed, hop_adjs = train_step.data, train_step.adj, train_step.feed, train_step.hop_adjs
     loader = feed.loader if feed is not None else None
-    dropout_gen, sample_gen, rng_np = train_step.dropout_gen, train_step.sample_gen, train_step.rng_np
+    dropout_gen, sample_gens, rng_np = train_step.dropout_gen, train_step.sample_gens, train_step.rng_np
     params = list(model.parameters())
     opt = build_optimizer(cfg, params)
     logger = MetricLogger(t.log_file, echo=verbose)
@@ -381,16 +465,16 @@ def fit(
         if resume and ckpt.latest_step() is not None:
             _, _, _, extra = ckpt.restore(model, opt, buffer_state(model) or None)
             if extra and "random_state" in extra:
-                _restore_random_state(extra["random_state"], dropout_gen, sample_gen, rng_np, loader)
+                _restore_random_state(extra["random_state"], dropout_gen, sample_gens, rng_np, loader)
             start_epoch = int(ckpt.latest_step())
 
     def save_checkpoint(step: int) -> None:
-        extra = {"random_state": _random_state(dropout_gen, sample_gen, rng_np, loader)}
+        extra = {"random_state": _random_state(dropout_gen, sample_gens, rng_np, loader)}
         ckpt.save(step, model, opt, buffer_state(model) or None, extra)
 
     history = []
     best_val, best_state, patience_left = -1.0, None, t.patience
-    thr = Throughput(data.num_edges)
+    thr = Throughput(num_edges)
     thr.start()
     for epoch in range(start_epoch, t.epochs):
         t_step = time.perf_counter()

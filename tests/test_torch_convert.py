@@ -225,16 +225,20 @@ def test_file_datasets_that_are_missing_name_their_layout(tmp_path):
 
 def test_new_names_are_exported_as_in_the_jax_package():
     """Every name of the JAX package's ``graphs``, ``train`` and ``ops``
-    ``__all__`` is exported by the port, and of ``native``'s all but the
-    two partitioners of the multi-device item."""
+    ``__all__`` is exported by the port, of ``native``'s all but
+    ``available`` (the port's core has no fallback to report), and of
+    ``parallel``'s all but the four GSPMD annotations."""
     from gnn_tpu import native as jnative
+    from gnn_tpu import parallel as jparallel
     from gnn_tpu import train as jtrain
+    from gnn_tpu_torch import parallel as tparallel
 
     assert set(jgraphs.__all__) <= set(tgraphs.__all__)
     assert set(jtrain.__all__) <= set(ttrain.__all__)
     assert set(jops.__all__) <= set(tops.__all__)
-    assert set(jnative.__all__) - set(tnative.__all__) == {"available", "partition_by_edges", "louvain_cluster"}
+    assert set(jnative.__all__) - set(tnative.__all__) == {"available"}
+    assert set(jparallel.__all__) - set(tparallel.__all__) == {"replicated", "shard", "P", "NamedSharding"}
     assert {"NeighborSampler", "sample_neighbors", "random_regular"} <= set(tgraphs.__all__)
     assert {"Checkpointer", "HostBatchLoader"} <= set(ttrain.__all__)
-    for module in (tgraphs, ttrain, tops, tnative):
+    for module in (tgraphs, ttrain, tops, tnative, tparallel):
         assert all(hasattr(module, name) for name in module.__all__)

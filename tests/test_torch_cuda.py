@@ -644,3 +644,87 @@ def test_device_put_slabbed_and_entry_on_card(cuda_device):
     args[0].load_state_dict(args_cpu[0].state_dict())
     with torch.no_grad():
         torch.testing.assert_close(fn(*args).cpu(), fn_cpu(*args_cpu), rtol=1e-4, atol=1e-5)
+
+
+def _dist_pair(device, halo, P, blocked=0, weighted=True):
+    """The same partition on the card and on the CPU (every part in one
+    process), with a 3000-node power-law graph."""
+    from gnn_tpu_torch.parallel import make_mesh, partition_graph
+
+    n = 3000
+    ei, _ = tg.to_undirected(tg.power_law(n, 30000, seed=1), num_nodes=n)
+    ei, w = tg.gcn_norm(ei, num_nodes=n)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        mesh = make_mesh(axes=("data",), devices=[dev] * P)
+        out.append(partition_graph(ei, w if weighted else None, num_nodes=n, mesh=mesh, halo=halo,
+                                   local_blocked=blocked))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("halo,P,blocked", [("allgather", 4, 0), ("alltoall", 4, 0), ("alltoall", 2, 0),
+                                            ("overlap", 4, 0), ("overlap", 4, 64)])
+@pytest.mark.parametrize("F", [8, 64])
+def test_dist_ops_launch_k1_k2_on_card(cuda_device, halo, P, blocked, F):
+    """Every per-part product and reduction of parallel/halo.py is one K1 or
+    K2 launch for all parts, equal to the CPU partition's plain versions and
+    bitwise equal on a repeat: spmm_dist (K1 forward, K1 dx; overlap two of
+    each), gather_src_dist's VJP (K1 over the incidence CSR, and over the
+    send CSR in the targeted modes), edge_reduce_by_dst and gather_dst_dist's
+    VJP (K2)."""
+    from gnn_tpu_torch.parallel import edge_reduce_by_dst, gather_dst_dist, gather_src_dist, spmm_dist
+
+    card, cpu = _dist_pair(cuda_device, halo, P, blocked)
+    tol = _tolerance(torch.float32)
+    x = torch.randn(P * card.n_max, F)
+    g = torch.randn(P * card.n_max, F)
+    ge = torch.randn(P * card.e_max, F)
+    k1 = 2 if halo == "overlap" else 1
+    for op, kernel, want_launches in (
+        (lambda d, v: spmm_dist(d, v), "k1", k1),
+        (lambda d, v: gather_src_dist(d, v), "k1", 1 if halo == "allgather" else 2),
+        (lambda d, v: gather_dst_dist(d, v), "k2", 1),
+    ):
+        outs = []
+        for d, dev in ((card, cuda_device), (cpu, torch.device("cpu"))):
+            xv = x.to(dev, copy=True).requires_grad_()  # a leaf on either device
+            y = op(d, xv)
+            before = (csr_spmm.launches, segment_sum_csr.launches)
+            y.backward(ge.to(dev) if y.shape[0] == P * card.e_max else g.to(dev))
+            torch.cuda.synchronize()
+            launched = (csr_spmm.launches - before[0], segment_sum_csr.launches - before[1])
+            outs.append((y.detach().cpu(), xv.grad.cpu(), launched))
+        (y1, g1, launched), (y0, g0, _) = outs
+        torch.testing.assert_close(y1, y0, **tol)
+        torch.testing.assert_close(g1, g0, **tol)
+        assert launched == ((want_launches, 0) if kernel == "k1" else (0, want_launches)), launched
+    s = edge_reduce_by_dst(card, ge.to(cuda_device))
+    torch.testing.assert_close(s.cpu(), edge_reduce_by_dst(cpu, ge), **tol)
+    assert torch.equal(s, edge_reduce_by_dst(card, ge.to(cuda_device)))
+    xc = x.to(cuda_device)
+    assert torch.equal(spmm_dist(card, xc), spmm_dist(card, xc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gcn", "gat", "sage", "gin"])
+def test_dist_models_on_card_match_cpu(cuda_device, name):
+    """A model on the card's partition against the same model on the CPU's:
+    logits and parameter gradients."""
+    from gnn_tpu_torch.models import GAT, GCN, GIN, GraphSAGE
+
+    card, cpu = _dist_pair(cuda_device, "alltoall", 4)
+    make = {"gcn": lambda g: GCN(16, 32, 4, dropout=0.0, generator=g),
+            "gat": lambda g: GAT(16, 8, 4, heads=4, dropout=0.0, generator=g),
+            "sage": lambda g: GraphSAGE(16, 32, 4, dropout=0.0, generator=g),
+            "gin": lambda g: GIN(16, 32, 4, generator=g)}[name]
+    x = torch.randn(4 * card.n_max, 16)
+    grads = []
+    for d, dev in ((card, cuda_device), (cpu, torch.device("cpu"))):
+        model = make(torch.Generator().manual_seed(0)).to(dev)
+        out = model(x.to(dev), d)
+        torch.sin(out).sum().backward()
+        grads.append((out.detach().cpu(), [p.grad.cpu() for p in model.parameters() if p.grad is not None]))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(grads[0][1], grads[1][1]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)

@@ -233,8 +233,14 @@ def test_gat_unported_forms_raise():
     # the JAX package's error (gnn_tpu/models/gat.py:86-87)
     with pytest.raises(ValueError, match="need 2 hop adjacencies"):
         t.forward_sampled(torch.zeros(3, 4), [])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t.convs[0](torch.zeros(3, 4), object())
+    # the partitioned forward is ported (tests/test_torch_dist_models.py);
+    # attention weights stay single-device, as in the JAX package
+    from gnn_tpu_torch.parallel import make_mesh, partition_graph
+
+    mesh = make_mesh(axes=("data",), devices=[torch.device("cpu")] * 2)
+    dist = partition_graph(np.array([[0, 1, 2], [1, 2, 0]]), num_nodes=3, num_parts=2, mesh=mesh)
+    with pytest.raises(ValueError, match="single-device"):
+        t.convs[0](torch.zeros(2 * dist.n_max, 4), dist, return_attention=True)
 
 
 def _cfg(**over):

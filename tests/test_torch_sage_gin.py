@@ -329,6 +329,13 @@ def test_reorder_auto_keeps_node_ids_until_roadmap_item_9(graph):
     assert "item 9" not in tgraphs.build_adjacency.__doc__
 
 
+def _weighted_dist():
+    from gnn_tpu_torch.parallel import make_mesh, partition_graph
+
+    mesh = make_mesh(axes=("data",), devices=[torch.device("cpu")] * 2)
+    return partition_graph(np.array([[0, 1, 2], [1, 2, 0]]), np.ones(3), num_nodes=3, mesh=mesh)
+
+
 @pytest.mark.parametrize(
     "call,error,match",
     [
@@ -336,8 +343,11 @@ def test_reorder_auto_keeps_node_ids_until_roadmap_item_9(graph):
         # the JAX package's error (gnn_tpu/models/sage.py:70-71, gin.py:75-76)
         (lambda: GraphSAGE(4, 4, 2).forward_sampled(torch.zeros(3, 4), []), ValueError, "need 2 hop adjacencies"),
         (lambda: GIN(4, 4, 2).forward_sampled(torch.zeros(3, 4), []), ValueError, "need 2 hop adjacencies"),
-        (lambda: SAGEConv(4, 4)(torch.zeros(3, 4), object()), NotImplementedError, "item 15"),
-        (lambda: SAGEConv(4, 4)._forward_dist(torch.zeros(3, 4), None), NotImplementedError, "item 15"),
+        # the partitioned forward is ported (tests/test_torch_dist_models.py):
+        # max over a weight-baked partition raises the JAX package's error
+        (lambda: SAGEConv(4, 4, aggr="max")(torch.zeros(16, 4), _weighted_dist()), ValueError, "max"),
+        (lambda: SAGEConv(4, 4, aggr="max")._forward_dist(torch.zeros(16, 4), _weighted_dist()), ValueError,
+         "weight-baked"),
     ],
     ids=["sage.forward_sampled", "gin.forward_sampled", "sageconv.dist-graph", "sageconv._forward_dist"],
 )

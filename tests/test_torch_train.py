@@ -25,6 +25,7 @@ from gnn_tpu_torch.models import GCN, GIN, GraphSAGE
 from gnn_tpu_torch.nn import load_jax_state_dict
 from gnn_tpu_torch.train import Checkpointer, Config, fit
 from gnn_tpu_torch.train.cli import main, parse_args
+from gnn_tpu_torch.train.loop import build_model
 
 
 def _cfg(**over):
@@ -190,15 +191,23 @@ def test_fit_on_cuda_raises_without_a_card(monkeypatch):
     ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values()))),
 )
 def test_unported_branches_raise(override, tmp_path):
-    """What is still unported raises ``NotImplementedError`` naming its
-    item; what has been ported since does what the JAX ``fit`` does: sampled
+    """What has been ported does what the JAX ``fit`` does: ``dist.num_parts``
+    trains the partitioned graph to the single-device loss curve, sampled
     minibatches train (a model without ``forward_sampled`` is refused),
     ``host_features`` alone hits the JAX guard, ``checkpoint_dir`` writes
     the final checkpoint, ``train.reorder='true'`` relabels and trains to
     the JAX loss curve (rtol=1e-4)."""
     if "dist.num_parts" in override:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            fit(_cfg(**override), load_dataset("karate"), device="cpu", verbose=False)
+        # ported: the partitioned fit trains to the single-device loss curve
+        data = load_dataset("karate")
+        gen = lambda: torch.Generator().manual_seed(3)
+        cfg = _cfg(**override)
+        one = build_model(cfg, data.num_features, int(data.y.max()) + 1, gen())
+        parts = build_model(cfg, data.num_features, int(data.y.max()) + 1, gen())
+        _, _, want = fit(_cfg(**{k: v for k, v in override.items() if k != "dist.num_parts"}), data,
+                         model=one, device="cpu", verbose=False)
+        _, _, got = fit(cfg, data, model=parts, device="cpu", verbose=False)
+        np.testing.assert_allclose([h["loss"] for h in got], [h["loss"] for h in want], rtol=1e-4)
     elif "train.reorder" in override:
         jdata, tdata = jax_load_dataset("sbm"), load_dataset("sbm")
         jmodel = JaxGCN(tdata.num_features, 16, 4, key=jax.random.PRNGKey(2), dropout=0.0)
@@ -324,9 +333,11 @@ def test_sampled_guards_raise_what_jax_raises(override, match):
 
 
 def test_data_parallel_sampling_waits_for_the_parallel_item():
+    """Ported since: data-parallel sampling trains (tests/test_torch_dist_models.py
+    holds its gradients to the serial mean)."""
     cfg = _cfg(**{"model.name": "sage", "train.batch_size": 32, "dist.num_parts": 4})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fit(cfg, load_dataset("sbm"), device="cpu", verbose=False)
+    _, _, hist = fit(cfg, load_dataset("sbm"), device="cpu", verbose=False)
+    assert len(hist) == 5 and all(np.isfinite(h["loss"]) for h in hist)
     with pytest.raises(ValueError, match="train_mask"):
         fit(_cfg(**{"model.name": "sage", "train.batch_size": 8}), load_dataset("karate"), device="cpu", verbose=False)
 

@@ -2,7 +2,7 @@
 
     python3 tools/profile_gcn_step.py [--model gcn|gat|encoder_gcn|sage|gin] [--graph powerlaw|clustered]
         [--reorder auto|true|false|cluster] [--batch-size B --fanouts 15,10,5 [--host-features]]
-        [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
+        [--parts P [--halo allgather|alltoall|overlap]] [--warmup 5] [--timed 10] [--steps 5] [--trace PATH]
 
 Builds the arxiv-scale graph of ``chip_smoke.py`` (``--graph powerlaw``, the
 default, phases 2 and 2-gat; ``--graph clustered``, phase 2-cluster) and the
@@ -24,6 +24,9 @@ as in ``chip_smoke.py``'s phases 2-sampled-*: seeds drawn on the host, the
 node list sampled on the card, ``x[nodes]`` gathered, ``forward_sampled``,
 the loss on the seeds; with ``--host-features`` the sampling and the gather
 run on the host and one pinned slab a step is copied over (phase 2-host).
+``--parts P`` sets ``dist.num_parts``: the full graph in P parts on the card
+(``--halo``; phase 2-dist), with ``--batch-size`` the data-parallel sampled
+step; the busy time is then also split by the ``halo.exchange`` range.
 After
 ``--warmup`` steps it times ``--timed`` untraced steps with CUDA events,
 then traces ``--steps`` steps with ``torch.profiler``. It prints:
@@ -177,6 +180,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-size", type=int, default=0, help="seeds of a neighbour-sampled minibatch; 0 = full graph")
     ap.add_argument("--fanouts", default="15,10,5", help="with --batch-size: one fanout per layer, outermost last")
     ap.add_argument("--host-features", action="store_true", help="with --batch-size: sample and gather on the host")
+    ap.add_argument("--parts", type=int, default=0, help="dist.num_parts: the graph (or the batch) in P parts on the card")
+    ap.add_argument("--halo", choices=("allgather", "alltoall", "overlap"), default="alltoall", help="with --parts")
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--timed", type=int, default=10)
     ap.add_argument("--steps", type=int, default=5)
@@ -202,6 +207,7 @@ def main(argv=None) -> int:
         cfg = arxiv_sampled_config(args.model, fanouts, 1, args.host_features)
         cfg.train.batch_size = args.batch_size
     cfg.train.reorder = args.reorder
+    cfg.dist.num_parts, cfg.dist.halo = args.parts, args.halo
     model = build_model(
         cfg, data.num_features, int(data.y.max()) + 1,
         torch.Generator().manual_seed(cfg.train.seed),
@@ -211,10 +217,11 @@ def main(argv=None) -> int:
     opt = build_optimizer(cfg, params)
     train_step = build_step(cfg, data, model, dev)
     adj, hop_adjs, feed = train_step.adj, train_step.hop_adjs, train_step.feed
-    n_edges = data.num_edges if adj is None else adj.num_edges  # adj's: with self loops
+    n_edges = data.num_edges if adj is None or args.parts > 1 else adj.num_edges  # adj's: with self loops
     log(f"graph: {args.graph}, {N_NODES} nodes, {n_edges} edges; model {args.model}; reorder {args.reorder}"
         + (f"; batch {args.batch_size}, fanouts {cfg.train.fanouts}" if sampled else "")
-        + ("; host features" if args.host_features else ""))
+        + ("; host features" if args.host_features else "")
+        + (f"; {args.parts} parts, halo {args.halo}" if args.parts > 1 else ""))
     host_ms = {"batch": [], "copy": []}
 
     def step():
@@ -270,6 +277,8 @@ def main(argv=None) -> int:
         splits.append(("blocked", {"blocked_matvec.diag": lambda name: "block product (pad, bmm, cast)"}))
     if args.model == "gat":
         splits.append(("gat", {"spmm_heads.dw": sddmm_part}))
+    if args.parts > 1 and not sampled:
+        splits.append(("halo", {"halo.exchange": lambda name: "halo exchange (gather on the card)"}))
     if sampled and not args.host_features:
         splits.append(("sampled", {"sampled.sample": lambda name: "sampler (draws, index ops)",
                                    "sampled.gather": lambda name: "x[nodes], y[seeds] gather"}))
@@ -296,7 +305,7 @@ def main(argv=None) -> int:
         tail = slice(-(args.timed + args.steps), None)
         log(f"host ms per step (mean over the timed and traced steps): sample + gather "
             f"{np.mean(host_ms['batch'][tail]):.3f}, staging + copy enqueue {np.mean(host_ms['copy'][tail]):.3f}")
-    if args.model == "gat" and not sampled:
+    if args.model == "gat" and not sampled and args.parts <= 1:
         n, e, size = adj.num_dst_nodes, adj.num_edges, 4
         k3 = [bounds.csr_spmm_heads_bound(n, n, e, cfg.model.heads, cfg.model.hidden, size, indexed=t)
               for t in (False, True)]
