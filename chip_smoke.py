@@ -79,7 +79,26 @@ the power-law graph in 3 chunks at F=128 (weighted and with ``norm``)
 against resident K1 forward and dx, one K1 launch a chunk; then, timed, a
 generated graph of about 34 M edges whose edge list stays on the host
 (chunks, edges/s, the host's pack ms, the copies' and K1's ms a chunk, the
-copies' GB/s beside a pinned copy's). Phase 3 checks the kernel
+copies' GB/s beside a pinned copy's). Phase 2-dist-stream runs
+``DistEdgeStream`` (each of 4 parts streams its destinations' in-edges, the
+unique source rows of each chunk gathered on the host from a numpy
+``x_host``, one K1 launch a chunk for all the parts): the power-law graph in
+chunks of 2^18 edges at F=128 against resident K1 (rtol 1e-5, atol 1e-5),
+bitwise on a repeat, then phase 2-stream's ~34 M-edge graph with a 1 GB
+``x_host`` in chunks of 2^19 edges (edges/s, the host's unique, gather and
+pack ms a chunk, the bytes shipped against x's and against the JAX layout's,
+its padding share, the copies' GB/s beside a pinned copy's, K1's ms and
+launches a chunk, the bound: the shipped bytes at the pinned rate). Phase
+2-tp trains the GCN 3 x 256 (dropout 0) on a (4, 2) (data, model) mesh of the
+card in one process, every Linear's out-features split into two column
+blocks: the first step's loss and gradients against one device's (loss
+within 1e-5, gradients at rtol 2e-4 / atol 1e-5), then the step time and K1
+6 a step. Inside the world-of-one NCCL group (see below) phase 3-group runs
+``fit`` of the GCN and of EncoderGCN under SGD on 4 parts through the group
+path (the loss's and the accuracies' counts, BatchNorm's statistics and the
+gradients all-reduced): losses and final parameters and buffers equal phase
+2-dist's in-process fit bit for bit, with the step time beside it and the
+all-reduces an epoch with their CUDA-event ms. Phase 3 checks the kernel
 path against the CPU path on a small graph for GCN, GAT, the blocked GCN,
 EncoderGCN (with its BatchNorm buffers), GraphSAGE (mean and max) and GIN,
 trains the Kipf GCN (on the CSR and on the blocked layout) and the GAT
@@ -88,7 +107,12 @@ every model and for SGD with clipping; it also holds ``forward_sampled``
 on the card to the CPU for one node list, runs the CLI on sampled
 minibatches and with ``--train.reorder`` 'true' and 'auto', checks that a
 run stopped at a checkpoint and resumed equals an uninterrupted one, and
-runs ``gnn_tpu_torch.entry.entry()``'s forward on the card against the CPU.
+runs ``gnn_tpu_torch.entry.entry()``'s forward on the card against the CPU;
+``dryrun_multichip(4)`` runs whole (its ``DistEdgeStream`` part and its
+tensor-parallel step included). The world-of-one NCCL group (after phase
+2-dist) holds ``spmm_dist`` and the ``gather_src_dist`` VJP through the
+group's collectives to the in-process results bit for bit. NCCL across cards
+needs a machine with several; this script uses one.
 
 The next-to-last line of standard output is a JSON object with each
 kernel's launches (in all, and per training step of each path, the
@@ -101,6 +125,7 @@ non-zero and prints no result. It needs a CUDA device; there is no CPU path.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import re
@@ -117,7 +142,7 @@ from gnn_tpu_torch.graphs import Data, build_adjacency, gcn_norm, power_law, to_
 from gnn_tpu_torch.graphs.blocked import _diag_product, blocked_matvec, blocked_matvec_plain
 from gnn_tpu_torch.graphs.generate import clustered_power_law, cora_like, stochastic_block_model
 from gnn_tpu_torch.graphs.sampling import NeighborSampler, hop_adjacencies
-from gnn_tpu_torch.graphs.streaming import EdgeStream, streaming_spmm, streaming_spmm_grad
+from gnn_tpu_torch.graphs.streaming import DistEdgeStream, EdgeStream, streaming_spmm, streaming_spmm_grad
 from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
@@ -149,6 +174,12 @@ SAGE_FANOUTS, GAT_FANOUTS = (15, 10, 5), (10, 5)
 # more than STREAM_PREP_S seconds)
 STREAM_F, STREAM_CHUNK, STREAM_TIMED_CHUNK = 128, 1 << 20, 1 << 22
 STREAM_NODES, STREAM_DIRECTED_EDGES, STREAM_PREP_S = 2_000_000, 16_000_000, 60.0
+# Phase 2-dist-stream: that graph again in 4 parts of DistEdgeStream, chunks
+# of 2^19 edges (a staging buffer holds one chunk's edges and the 4 parts'
+# unique rows: ~0.7 GB, two of them)
+DIST_STREAM_CHUNK = 1 << 19
+# Phase 2-tp: the (data, model) mesh of the tensor-parallel GCN
+TP_MESH = (4, 2)
 # float32: hub rows sum thousands of terms in another order than the plain
 # version's atomics. bfloat16: the plain version sums the same bf16 inputs
 # in float32 and rounds once, so the two differ by at most one bf16 rounding
@@ -284,6 +315,17 @@ def record(results, name, what, tag, dtype, err, ms, plain_ms, bound, library_ms
     log(f"phase1 {name:16s} {what:15s} {tag:14s} max_abs_err={err:.3e} "
         f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound.bound_ms:.4f} ({bound.bound_by}) "
         f"noreuse_ms={bound.noreuse_ms:.4f} library_ms={library}")
+
+
+def compare_norm(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float = 1e-5) -> float:
+    """For sums of many terms in another order: the relative Frobenius error
+    within ``rtol``. Returns it."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} (want {tuple(want.shape)}) or non-finite values")
+    err = ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+    if err > rtol:
+        raise AssertionError(f"{label}: relative Frobenius error {err:.3e} above {rtol}")
+    return err
 
 
 def library_ms(label: str, call, got: torch.Tensor) -> float:
@@ -1149,6 +1191,43 @@ def phase2_cluster(data: Data, dev) -> dict:
     return out
 
 
+def chunk_k1_row(label: str, run_pass) -> dict:
+    """K1 on one streamed chunk: the arguments of the first K1 launch of
+    ``run_pass()`` (a pass of a stream, which runs in full) are kept, and K1
+    on them is timed beside its plain version, its bound and
+    ``torch.sparse.mm`` over the same CSR."""
+    from gnn_tpu_torch.graphs import streaming
+
+    captured, k1 = [], streaming.csr_spmm
+
+    def capture(*args):
+        if not captured:
+            captured.append([None if a is None else a.clone() for a in args])
+        return k1(*args)
+
+    streaming.csr_spmm = capture
+    try:
+        run_pass()
+    finally:
+        streaming.csr_spmm = k1
+    row_ptr, col, w, x = captured[0]
+    n_rows, n_src, F = row_ptr.numel() - 1, x.shape[0], x.shape[1]
+    got = csr_spmm(row_ptr, col, w, x)
+    compare(f"{label} plain", csr_spmm_plain(row_ptr, col, w, x), got, torch.float32)
+    a = sparse_csr(row_ptr, col, w if w is not None else torch.ones(col.numel(), device=x.device), n_src)
+    bound = bounds.csr_spmm_bound(n_rows, n_src, col.numel(), F, 4, weighted=w is not None)
+    row = dict(
+        rows=n_rows, src_rows=n_src, edges=col.numel(), F=F, ms=time_ms(lambda: csr_spmm(row_ptr, col, w, x)),
+        plain_ms=time_ms(lambda: csr_spmm_plain(row_ptr, col, w, x)), bound_ms=bound.bound_ms,
+        bound_by=bound.bound_by, noreuse_ms=bound.noreuse_ms,
+        library_ms=library_ms(label, lambda: torch.sparse.mm(a, x), got),
+    )
+    log(f"{label}: K1 on the first chunk ({n_rows} rows, {col.numel()} edges, x [{n_src}, {F}]): {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}), no reuse "
+        f"{row['noreuse_ms']:.4f}, torch.sparse.mm {row['library_ms']:.4f}")
+    return row
+
+
 def pinned_copy_ms(nbytes: int, dev) -> float:
     """Median CUDA-event time of one host-to-device copy of ``nbytes`` from
     pinned memory: the rate the streamed chunks' copies are held to."""
@@ -1164,7 +1243,7 @@ def stream_norm(ei: np.ndarray, n: int, dev) -> torch.Tensor:
     return torch.from_numpy(np.where(deg > 0, deg, 1) ** -0.5).to(dev)
 
 
-def phase2_stream(edges: np.ndarray, dev) -> None:
+def phase2_stream(edges: np.ndarray, dev) -> tuple:
     """``graphs/streaming.py`` on the card. First the power-law arxiv-scale
     graph at F=128 in chunks of 2^20 edges (3 chunks, destinations cut at
     their boundaries), with baked gcn_norm weights and with ``norm``:
@@ -1176,7 +1255,8 @@ def phase2_stream(edges: np.ndarray, dev) -> None:
     s) against x [N, 128] float32 on the card, in chunks of 2^22 edges:
     chunks, edges/s, the host's pack ms and the copies' and K1's CUDA-event
     ms a chunk, the copies' GB/s beside a pinned copy's measured in this
-    run (the stream's bound: its bytes at that rate)."""
+    run (the stream's bound: its bytes at that rate). Returns the timed graph
+    (its edges, weights and node count) for phase 2-dist-stream."""
     ei, w = gcn_norm(edges, num_nodes=N_NODES, self_loops=True)
     adj = build_adjacency(ei, w, num_nodes=N_NODES).to(dev)
     norm = stream_norm(ei, N_NODES, dev)
@@ -1234,14 +1314,17 @@ def phase2_stream(edges: np.ndarray, dev) -> None:
     log(f"phase2-stream timed graph: power_law({n}, {e_dir}, alpha=0.8, seed=0), undirected, gcn_norm self loops: "
         f"{n} nodes, {E} edges, edge arrays on the host {(ei.nbytes + w.nbytes) / 1e6:.1f} MB; host prep {prep:.1f} s")
     norm = stream_norm(ei, n, dev)
-    del ei, w
     x = torch.randn(n, STREAM_F, generator=gen, device=dev)
     results = {}
     for mode, stream in streams.items():
         n_norm = norm if mode == "norm" else None
         nbytes = stream.packed_len * 4
         pinned_ms = pinned_copy_ms(nbytes, dev)
-        streaming_spmm(stream, x, norm=n_norm)  # warm-up
+        if mode == "weighted":  # the warm-up, its first chunk timed alone
+            log(json.dumps({"phase2-stream chunk": chunk_k1_row(
+                "phase2-stream chunk", lambda: streaming_spmm(stream, x, norm=n_norm))}))
+        else:
+            streaming_spmm(stream, x, norm=n_norm)  # warm-up
         walls, stats = [], {}
         for _ in range(3):
             torch.cuda.synchronize()
@@ -1268,6 +1351,183 @@ def phase2_stream(edges: np.ndarray, dev) -> None:
     log(f"phase2-stream timed: the weighted and norm passes agree (max abs err {err:.3e})")
     del x, norm, results, out
     torch.cuda.empty_cache()
+    return ei, w, n
+
+
+def reset_counters() -> None:
+    for counter in COUNTERS.values():
+        counter.launches = 0
+
+
+def dist_stream_pass(stream, x_host: np.ndarray, mesh, label: str) -> tuple:
+    """One ``spmm_host`` pass with every launch counter at 0 just before and
+    read just after: (the result, the counters, the pass's stats, its wall
+    seconds to a sync). Fails unless K1 ran once a chunk and nothing else."""
+    reset_counters()
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = stream.spmm_host(x_host, mesh, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    if launches != k1_only(stats["chunks"]) or stats["chunks"] != stream.num_chunks:
+        raise AssertionError(f"{label}: launches {launches} over {stream.num_chunks} chunks, not one K1 a chunk")
+    return out, launches, stats, wall
+
+
+def phase2_dist_stream(edges: np.ndarray, timed_graph: tuple, dev) -> tuple:
+    """``DistEdgeStream`` on the card: each of 4 parts streams the in-edges
+    of its destination range, with the unique source rows of each chunk
+    gathered on the host from ``x_host`` (numpy), all the parts' chunk CSRs
+    in one K1 launch a chunk. First the arxiv-scale graph in chunks of 2^18
+    edges at F=128 against resident K1 over the same weights (rtol 1e-5,
+    atol 1e-5), bitwise on a repeat; then, timed, phase 2-stream's graph of
+    about 34 M edges with x_host [N, 128] float32 (1 GB) on the host, in
+    chunks of ``DIST_STREAM_CHUNK`` edges (a staging buffer holds a chunk's
+    edges and the 4 parts' unique rows: ~0.7 GB at 2^19): edges/s a pass, the
+    host's unique + gather + pack ms a chunk, the bytes shipped against x's,
+    the padding share of the JAX layout (every part's chunk padded to
+    ``u_max`` unique rows), the copies' GB/s beside a pinned copy's, K1's ms
+    and launches a chunk, and the bound: the shipped bytes at the pinned
+    rate. Returns (launches, per pass, the median pass ms, []) for the
+    kernels line."""
+    from gnn_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh((DIST_PARTS,), ("data",), devices=[dev] * DIST_PARTS)
+    ei, w = gcn_norm(edges, num_nodes=N_NODES, self_loops=True)
+    adj = build_adjacency(ei, w, num_nodes=N_NODES).to(dev)
+    x_host = np.random.default_rng(11).standard_normal((N_NODES, STREAM_F), dtype=np.float32)
+    stream = DistEdgeStream(ei, w, num_nodes=N_NODES, num_parts=DIST_PARTS, chunk_edges=1 << 18)
+    out, _, stats, _ = dist_stream_pass(stream, x_host, mesh, "phase2-dist-stream arxiv-scale")
+    want = csr_spmm(adj.row_ptr, adj.src, adj.weight, torch.from_numpy(x_host).to(dev))
+    if not torch.allclose(out, want, rtol=1e-5, atol=1e-5):
+        raise AssertionError(f"phase2-dist-stream arxiv-scale: max abs err {(out - want).abs().max().item()} "
+                             "outside rtol 1e-5, atol 1e-5 against resident K1")
+    err = (out - want).abs().max().item()
+    if not torch.equal(out, stream.spmm_host(x_host, mesh)):
+        raise AssertionError("phase2-dist-stream arxiv-scale: a second pass gave other bits")
+    log(json.dumps({"phase2-dist-stream arxiv-scale": dict(
+        parts=DIST_PARTS, edges=stream.num_edges, chunks=stream.num_chunks, chunk_edges=stream.chunk_edges,
+        range_rows=stream.range_rows, max_abs_err=err, tolerance="rtol 1e-5, atol 1e-5 against resident K1",
+        k1_launches=stats["chunks"], bitwise_repeat=True)}))
+    del adj, out, want
+    torch.cuda.empty_cache()
+
+    ei, w, n = timed_graph
+    t0 = time.perf_counter()
+    x_host = np.random.default_rng(12).standard_normal((n, STREAM_F), dtype=np.float32)
+    stream = DistEdgeStream(ei, w, num_nodes=n, num_parts=DIST_PARTS, chunk_edges=DIST_STREAM_CHUNK)
+    prep = time.perf_counter() - t0
+    # the warm-up (the pinned buffers grow), its first chunk's CSR over the 4 parts timed alone
+    chunk = chunk_k1_row("phase2-dist-stream chunk",
+                         lambda: dist_stream_pass(stream, x_host, mesh, "phase2-dist-stream timed"))
+    passes = [dist_stream_pass(stream, x_host, mesh, "phase2-dist-stream timed") for _ in range(2)]
+    out, launches, stats, _ = passes[-1]
+    if not torch.isfinite(out).all() or tuple(out.shape) != (n, STREAM_F):
+        raise AssertionError(f"phase2-dist-stream timed: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    walls = [p[3] for p in passes]
+    chunks, shipped = stats["chunks"], stats["h2d_bytes"]
+    pinned_ms = pinned_copy_ms(stats["max_chunk_bytes"], dev)
+    pinned_rate = stats["max_chunk_bytes"] / pinned_ms / 1e6  # GB/s
+    # the chunks differ in size: the copies' rate is their bytes over their summed time
+    copy_ms, k1_ms = float(np.sum(stats["copy_ms"])), float(np.median(stats["k1_ms"]))
+    u = [v for row in stream.u_sizes for v in row]
+    u_max, C, R = stream.u_max, stream.chunk_edges, stream.range_rows
+    # the JAX step ships [P, C + R + 2 (+ C weighted) + u_max F] int32 words a chunk
+    jax_bytes = 4 * stream.num_chunks * DIST_PARTS * (C + R + 2 + C + u_max * STREAM_F)
+    row = dict(
+        parts=DIST_PARTS, nodes=n, edges=stream.num_edges, chunk_edges=C, chunks=chunks, range_rows=R,
+        host_prep_s=prep, pass_ms=[t * 1e3 for t in walls], edges_per_s=stream.num_edges / float(np.median(walls)),
+        unique_ms_per_chunk=stats["unique_ms"] / chunks, gather_ms_per_chunk=stats["gather_ms"] / chunks,
+        pack_ms_per_chunk=stats["pack_ms"] / chunks, rows_shipped=stats["rows_shipped"],
+        bytes_shipped=shipped, x_bytes=x_host.nbytes, shipped_over_x=shipped / x_host.nbytes,
+        jax_layout_padding_share=1.0 - sum(u) / (DIST_PARTS * stream.num_chunks * u_max), jax_layout_bytes=jax_bytes,
+        max_chunk_bytes=stats["max_chunk_bytes"], copy_ms_per_chunk=copy_ms / chunks,
+        copy_gb_per_s=shipped / copy_ms / 1e6, pinned_copy_gb_per_s=pinned_rate,
+        k1_ms_per_chunk=k1_ms, k1_launches_per_chunk=launches["csr_spmm"] / chunks,
+        bound_ms=shipped / pinned_rate / 1e6, first_chunk_k1=chunk,
+    )
+    log(f"phase2-dist-stream timed: {n} nodes, {stream.num_edges} edges in {DIST_PARTS} parts, {chunks} chunks of {C} "
+        f"edges (DistEdgeStream built in {prep:.1f} s); pass ms {row['pass_ms']}, "
+        f"{row['edges_per_s'] / 1e6:.1f} M edges/s; host ms a chunk: unique {row['unique_ms_per_chunk']:.2f}, gather "
+        f"{row['gather_ms_per_chunk']:.2f}, pack {row['pack_ms_per_chunk']:.2f}; shipped {shipped / 1e9:.3f} GB "
+        f"({row['shipped_over_x']:.2f} x x's {x_host.nbytes / 1e9:.3f} GB; the JAX layout's {jax_bytes / 1e9:.3f} GB, "
+        f"padding share {row['jax_layout_padding_share']:.4f}); copy {copy_ms / chunks:.3f} ms a chunk = "
+        f"{row['copy_gb_per_s']:.2f} GB/s against a pinned copy's {pinned_rate:.2f}; K1 {k1_ms:.3f} ms and "
+        f"{row['k1_launches_per_chunk']:.0f} launch a chunk; bound (the shipped bytes at the pinned rate) "
+        f"{row['bound_ms']:.1f} ms")
+    log(json.dumps({"phase2-dist-stream": row}))
+    del out, passes, x_host
+    torch.cuda.empty_cache()
+    return launches, {k: v / chunks for k, v in launches.items()}, float(np.median(walls)) * 1e3, []
+
+
+def phase2_tp(data: Data, dev) -> tuple:
+    """Tensor parallelism in one process: the GCN 3 x 256 of phase 2
+    (dropout 0) on a (4, 2) (data, model) mesh of the card: the graph in 4
+    parts, each Linear's out-features (256, 256, 40) split over the model
+    axis as two column blocks side by side. The first step's loss and
+    gradients against the single-device step on the same weights (loss
+    within 1e-5, gradients at rtol 2e-4 / atol 1e-5: the JAX test's
+    tolerances), then 6 Adam steps, each synced, with the launch counters at
+    0 just before; K1 6 a step. Returns (launches, per step, the median step
+    ms over steps 2-6, [])."""
+    from gnn_tpu_torch.optim import Adam
+    from gnn_tpu_torch.parallel import ShardedLinear, make_mesh, shard_model, shard_node_array
+
+    cfg = dist_config(arxiv_gcn_config())
+    mesh = make_mesh(TP_MESH, ("data", "model"), devices=[dev] * int(np.prod(TP_MESH)))
+    dist = data.to_dist_graph(mesh=mesh, halo="alltoall")
+    adj = data.to_adjacency(norm="sym").to(dev)
+    model = loop.build_model(cfg, IN_FEATURES, NUM_CLASSES, torch.Generator().manual_seed(0)).to(dev)
+    tp = shard_model(copy.deepcopy(model), mesh)
+    x, y, train = data.x.to(dev), data.y.to(dev), data.train_mask.to(dev)
+    x_sh, y_sh, m_sh = shard_node_array(dist, data.x, mesh), dist.shard_nodes(y), dist.shard_nodes(train, fill=False)
+    loss = cross_entropy(model(x, adj), y, train)
+    loss.backward()
+    tp_loss = cross_entropy(tp(x_sh, dist), y_sh, m_sh)
+    tp_loss.backward()
+    diff = abs(tp_loss.item() - loss.item())
+    if diff >= 1e-5:
+        raise AssertionError(f"phase2-tp: loss {tp_loss.item()} on the (4, 2) mesh, {loss.item()} on one device")
+    tp_grads = {}
+    for name, module in tp.named_modules():
+        if isinstance(module, ShardedLinear):
+            tp_grads[f"{name}.weight"] = torch.cat([s.grad for s in module.shards])
+            if any(s.shape[0] != module.out_features // TP_MESH[1] for s in module.shards):
+                raise AssertionError(f"phase2-tp: {name}'s shards do not hold out / {TP_MESH[1]} rows each")
+    tp_grads.update((n, p.grad) for n, p in tp.named_parameters() if ".shards." not in n)
+    worst = 0.0
+    for name, p in model.named_parameters():
+        got = tp_grads[name]
+        if not torch.allclose(got, p.grad, rtol=2e-4, atol=1e-5):
+            raise AssertionError(f"phase2-tp: gradient {name} differs from one device's beyond rtol 2e-4, atol 1e-5")
+        worst = max(worst, (got - p.grad).abs().max().item())
+    opt = Adam(tp.parameters(), lr=cfg.optim.lr)
+    reset_counters()
+    step_ms, losses = [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        step_loss = cross_entropy(tp(x_sh, dist), y_sh, m_sh)
+        step_loss.backward()
+        opt.step()
+        losses.append(step_loss.item())  # syncs the device
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counters()
+    per_step = {k: v / len(step_ms) for k, v in launches.items()}
+    if per_step != k1_only(6) or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase2-tp: launches a step {per_step} (K1 6 expected), losses {losses}")
+    median_ms = float(np.median(step_ms[1:]))
+    row = dict(mesh=list(TP_MESH), loss=tp_loss.item(), single_device_loss=loss.item(), loss_diff=diff,
+               max_abs_grad_err=worst, step_ms=step_ms, median_step_ms=median_ms, losses=losses,
+               k1_per_step=per_step["csr_spmm"])
+    log(f"phase2-tp GCN 3 x 256 on a {TP_MESH} (data, model) mesh of the card: loss {tp_loss.item():.6f} against one "
+        f"device's {loss.item():.6f} (|diff| {diff:.2e}), gradients within rtol 2e-4 / atol 1e-5 (max abs err "
+        f"{worst:.2e}); median step ms over steps 2-6 {median_ms:.3f}; K1 {per_step['csr_spmm']:.0f} a step")
+    log(json.dumps({"phase2-tp": row}))
+    return launches, per_step, median_ms, []
 
 
 def card_vs_cpu(label: str, make_model, data: Data, adj_cpu, dev) -> None:
@@ -1452,7 +1712,6 @@ def phase3(dev) -> None:
     resume_on_card("GraphSAGE sampled", dev,
                    **{"model.name": "sage", "train.batch_size": 64, "train.fanouts": "[4,4]"})
     dist_card_vs_cpu(dev)
-    world_of_one(dev)
 
 
 # -- graph-partition parallelism: P parts on the one card --------------------
@@ -1557,16 +1816,53 @@ def dist_edge_rows(dist, adj_single, dev) -> dict:
     ge = torch.randn_like(edges)
     vjp = lambda: _GatherSrc.backward(type("ctx", (), {"dist": dist})(), ge)[0]
     check_repeat("phase1-dist gather_src_dist VJP", vjp, (), vjp())
+    # K2 alone over the parts' destination CSR (a padding row a part), and
+    # the VJP's two K1 calls, each beside its plain version, its bound and
+    # the library's call for the same function. Their rows sum up to 21,305
+    # unit-weight N(0, 1) terms (the hub), so the other summation orders are
+    # held by the relative Frobenius error (1e-5), not elementwise
+    rows, F, n_own = edges.shape[0], DIST_GAT_WIDTH, dist.num_local_parts * dist.n_max
+    k2_out = segment_sum_csr(dist.dst_row_ptr, edges)
+    k2_bound = bounds.segment_sum_bound(dist.dst_row_ptr.numel() - 1, rows, F, 4)
+    inc, send = dist.inc, dist.send
+    def vjp_plain():
+        partials = csr_spmm_plain(inc.row_ptr, inc.src, None, ge)
+        return csr_spmm_plain(send.row_ptr, send.src, None, partials[n_own:]).add_(partials[:n_own])
+
+    want_vjp = vjp()
+    compare_norm("phase1-dist gather_src_dist VJP plain", vjp_plain(), want_vjp)
+    a_inc = sparse_csr(inc.row_ptr, inc.src, torch.ones(inc.src.numel(), device=dev), rows)
+    a_send = sparse_csr(send.row_ptr, send.src, torch.ones(send.src.numel(), device=dev), inc.num_dst_nodes - n_own)
+
+    def vjp_library():
+        partials = torch.sparse.mm(a_inc, ge)
+        return torch.sparse.mm(a_send, partials[n_own:]).add_(partials[:n_own])
+
+    k2_library = lambda: torch.segment_reduce(edges, "sum", offsets=dist.dst_row_ptr, axis=0, unsafe=True)
+    compare_norm("phase1-dist K2 plain", segment_sum_csr_plain(dist.dst_row_ptr, edges), k2_out)
+    compare_norm("phase1-dist K2 torch.segment_reduce", k2_library(), k2_out)
+    compare_norm("phase1-dist gather_src_dist VJP torch.sparse.mm", vjp_library(), want_vjp)
+    vjp_bound_ms = (bounds.csr_spmm_bound(inc.num_dst_nodes, rows, inc.src.numel(), F, 4, weighted=False).bound_ms
+                    + bounds.csr_spmm_bound(n_own, inc.num_dst_nodes - n_own, send.src.numel(), F, 4,
+                                            weighted=False).bound_ms)
     row = dict(
         err=max(err, err_dx), gather_ms=time_ms(lambda: gather_src_dist(dist, xd)),
         reduce_ms=time_ms(lambda: edge_reduce_by_dst(dist, edges)), gather_vjp_ms=time_ms(vjp),
         single_ms=time_ms(lambda: csr_spmm(adj_single.row_ptr, adj_single.src, None, x)),
-        edges_rows=edges.shape[0], launches_fwd=fwd_launches, launches_bwd=bwd_launches,
+        edges_rows=rows, launches_fwd=fwd_launches, launches_bwd=bwd_launches,
+        k2_ms=time_ms(lambda: segment_sum_csr(dist.dst_row_ptr, edges)),
+        k2_plain_ms=time_ms(lambda: segment_sum_csr_plain(dist.dst_row_ptr, edges)),
+        k2_bound_ms=k2_bound.bound_ms, k2_bound_by=k2_bound.bound_by,
+        k2_library_ms=time_ms(k2_library), gather_vjp_plain_ms=time_ms(vjp_plain), gather_vjp_bound_ms=vjp_bound_ms,
+        gather_vjp_library_ms=time_ms(vjp_library),
     )
     log(f"phase1-dist gather_src_dist + edge_reduce_by_dst alltoall [{edges.shape[0]}, {DIST_GAT_WIDTH}]: "
         f"max_abs_err={row['err']:.3e} gather_ms={row['gather_ms']:.4f} reduce (K2) ms={row['reduce_ms']:.4f} "
         f"gather VJP (K1 incidence + K1 send) ms={row['gather_vjp_ms']:.4f}; single-device K1 w null "
-        f"{row['single_ms']:.4f} ms; K1, K2 launches fwd {fwd_launches} bwd {bwd_launches}; bitwise repeat ok")
+        f"{row['single_ms']:.4f} ms; K1, K2 launches fwd {fwd_launches} bwd {bwd_launches}; bitwise repeat ok; "
+        f"K2 alone {row['k2_ms']:.4f} ms (plain {row['k2_plain_ms']:.4f}, bound {row['k2_bound_ms']:.4f}, "
+        f"torch.segment_reduce {row['k2_library_ms']:.4f}); the VJP's plain {row['gather_vjp_plain_ms']:.4f}, bound "
+        f"{vjp_bound_ms:.4f}, torch.sparse.mm {row['gather_vjp_library_ms']:.4f} ms")
     if fwd_launches != (0, 1) or bwd_launches != (2, 0):
         raise AssertionError(f"phase1-dist edge ops launched {fwd_launches} / {bwd_launches}, not (0, 1) / (2, 0)")
     return row
@@ -1617,11 +1913,17 @@ def encoder_sgd_config() -> Config:
     return cfg
 
 
-def phase2_dist(data: Data, dev) -> dict:
+def final_tensors(model, state) -> list:
+    """A copy of a trained model's parameters and buffers, on the CPU."""
+    return [t.detach().cpu().clone() for t in list(model.parameters()) + list((state or {}).values())]
+
+
+def phase2_dist(data: Data, dev, finals: dict) -> dict:
     """fit on 4 parts of the card at arxiv scale, dropout 0, 5 epochs: the
     GCN 3 x 256 (halo 'alltoall'), the GAT 2 x 8 x 32 and EncoderGCN (under
     SGD), each against the single-device fit of the same config and initial
-    weights (losses at rtol 1e-4)."""
+    weights (losses at rtol 1e-4). ``finals`` gets each run's final
+    parameters and buffers, for phase 3-group."""
     runs, ms = {}, {}
     for name, make, want in (
         ("gcn", arxiv_gcn_config, k1_only(45)),
@@ -1635,7 +1937,8 @@ def phase2_dist(data: Data, dev) -> dict:
         single.dist.num_parts = 0
         _, _, want_hist = fit(single, data, device=dev, verbose=False)
         label = f"phase2-dist {name}"
-        runs[name] = train_phase(label, dist_config(make(), halo="alltoall"), data, dev, want)
+        keep = lambda model, state, history, name=name: finals.__setitem__(name, final_tensors(model, state))
+        runs[name] = train_phase(label, dist_config(make(), halo="alltoall"), data, dev, want, keep)
         got = [h["loss"] for h in runs[name][3]]
         ref = [h["loss"] for h in want_hist]
         if not np.allclose(got, ref, rtol=1e-4, atol=0.0):
@@ -1707,18 +2010,85 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def world_of_one(dev) -> None:
+def counted_all_reduce():
+    """Wrap ``torch.distributed.all_reduce`` (every all-reduce of the port
+    calls it through the module) to record each call's tensor size and
+    CUDA-event time on the current stream. Returns (the calls, a function
+    that restores the original)."""
+    import torch.distributed as tdist
+
+    calls, original = [], tdist.all_reduce
+
+    def all_reduce(tensor, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = original(tensor, *args, **kwargs)
+        end.record()
+        calls.append((tensor.numel(), start, end))
+        return out
+
+    tdist.all_reduce = all_reduce
+    return calls, lambda: setattr(tdist, "all_reduce", original)
+
+
+def group_fits(data: Data, dev, finals: dict, dist_runs: dict) -> dict:
+    """Phase 3-group, inside the world-of-one group: fit of the GCN 3 x 256
+    and of EncoderGCN under SGD on 4 parts, as phase 2-dist ran them in one
+    process, now on the group path (the loss's and the accuracies' counts,
+    BatchNorm's statistics and the gradients all-reduced over the group).
+    The losses and the final parameters and buffers must equal phase
+    2-dist's bit for bit; prints the step time beside phase 2-dist's and the
+    all-reduces per epoch with their CUDA-event ms."""
+    runs, rows = {}, {}
+    for name, make, want in (("gcn", arxiv_gcn_config, k1_only(45)), ("encoder_gcn", encoder_sgd_config, k1_only(30))):
+        label = f"phase3-group {name}"
+        got = {}
+        keep = lambda model, state, history: got.setdefault("tensors", final_tensors(model, state))
+        calls, restore = counted_all_reduce()
+        try:
+            run = train_phase(label, dist_config(make(), halo="alltoall"), data, dev, want, keep)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        reference = dist_runs[f"{name}-dist"]
+        losses, ref_losses = [h["loss"] for h in run[3]], [h["loss"] for h in reference[3]]
+        if losses != ref_losses:
+            raise AssertionError(f"{label}: losses {losses} in the group, {ref_losses} in one process")
+        if len(got["tensors"]) != len(finals[name]) or not all(
+            torch.equal(a, b) for a, b in zip(got["tensors"], finals[name])
+        ):
+            raise AssertionError(f"{label}: the final parameters or buffers differ from the in-process fit's")
+        epochs = make().train.epochs
+        ms = [start.elapsed_time(end) for _, start, end in calls]
+        grad_numel = max(n for n, _, _ in calls)
+        grad_ms = [m for (n, _, _), m in zip(calls, ms) if n == grad_numel]
+        rows[name] = dict(
+            step_ms=run[2], in_process_step_ms=reference[2], all_reduces_per_epoch=len(calls) / epochs,
+            all_reduce_ms_per_epoch=sum(ms) / epochs, gradient_all_reduce_numel=grad_numel,
+            gradient_all_reduce_ms=float(np.median(grad_ms)), bitwise=True,
+        )
+        runs[f"{name}-group"] = run[:4]
+        log(f"{label}: losses and the final parameters and buffers equal the in-process 4-part fit's bit for bit; "
+            f"median step ms {run[2]:.3f} (in process {reference[2]:.3f}); all-reduces an epoch (evaluation and "
+            f"the loss report included) {len(calls) / epochs:.1f}, {sum(ms) / epochs:.3f} ms; the gradients' "
+            f"({grad_numel} floats) median {rows[name]['gradient_all_reduce_ms']:.3f} ms")
+    log(json.dumps({"phase3-group": rows}))
+    return runs
+
+
+def world_of_one(dev, data: Data, finals: dict, dist_runs: dict) -> dict:
     """A torch.distributed group of one process (NCCL on a local address):
     spmm_dist and gather_src_dist's VJP through the group's collectives
-    equal the in-process result bit for bit, in each halo mode; then the
-    group is destroyed."""
+    equal the in-process result bit for bit, in each halo mode; then phase
+    3-group (``group_fits``); then the group is destroyed. Returns phase
+    3-group's runs."""
     import torch.distributed as tdist
 
     from gnn_tpu_torch.parallel import gather_src_dist, make_mesh, multihost, partition_graph, spmm_dist
 
-    data = stochastic_block_model(num_nodes=4000, num_classes=4, seed=8)
-    ei, w = gcn_norm(data.edge_index.numpy(), num_nodes=data.num_nodes, self_loops=True)
-    alone = {h: partition_graph(ei, w, num_nodes=data.num_nodes, mesh=make_mesh(
+    small = stochastic_block_model(num_nodes=4000, num_classes=4, seed=8)
+    ei, w = gcn_norm(small.edge_index.numpy(), num_nodes=small.num_nodes, self_loops=True)
+    alone = {h: partition_graph(ei, w, num_nodes=small.num_nodes, mesh=make_mesh(
         (DIST_PARTS,), ("data",), devices=[dev] * DIST_PARTS), halo=h) for h in ("allgather", "alltoall", "overlap")}
     multihost.initialize(f"localhost:{free_port()}", 1, 0, device=dev)
     try:
@@ -1726,8 +2096,8 @@ def world_of_one(dev) -> None:
         if not mesh.grouped:
             raise AssertionError("world of one: the mesh does not ride the process group")
         for halo, ref in alone.items():
-            dist = partition_graph(ei, w, num_nodes=data.num_nodes, mesh=mesh, halo=halo)
-            x = dist.shard_nodes(torch.randn(data.num_nodes, 64, generator=torch.Generator().manual_seed(1)).to(dev))
+            dist = partition_graph(ei, w, num_nodes=small.num_nodes, mesh=mesh, halo=halo)
+            x = dist.shard_nodes(torch.randn(small.num_nodes, 64, generator=torch.Generator().manual_seed(1)).to(dev))
             results = []
             for d in (ref, dist):
                 xr = x.clone().requires_grad_()
@@ -1741,9 +2111,11 @@ def world_of_one(dev) -> None:
                     raise AssertionError(f"world of one {halo} {name}: the group's result differs from the in-process one")
             log(f"phase3 world-of-one NCCL group, {halo}: spmm_dist fwd, dx and the gather_src_dist VJP "
                 f"equal the in-process results bit for bit")
+        runs = group_fits(data, dev, finals, dist_runs)
     finally:
         tdist.destroy_process_group()
     log(f"phase3 world-of-one group destroyed: {not tdist.is_initialized()}")
+    return runs
 
 
 def main() -> int:
@@ -1792,7 +2164,10 @@ def main() -> int:
         "gat": phase2_gat(data, dev), "encoder_gcn": phase2_encoder(data, dev),
         "sage": phase2_sage(data, dev), "gin": phase2_gin(data, dev),
     })
-    runs.update(phase2_dist(data, dev))
+    finals = {}
+    runs.update(phase2_dist(data, dev, finals))
+    runs.update(world_of_one(dev, data, finals, runs))
+    runs["gcn-tp"] = phase2_tp(data, dev)
     del data
     sampled = arxiv_scale_data(edges, signal=1.0)
     runs.update({"sage-sampled": phase2_sampled_sage(sampled, dev), "gat-sampled": phase2_sampled_gat(sampled, dev),
@@ -1802,7 +2177,9 @@ def main() -> int:
     cluster_runs = phase2_cluster(arxiv_scale_data(clustered), dev)
     runs.update({"gcn-cluster": cluster_runs["cluster"], "gcn-clustered-csr": cluster_runs["auto"]})
     by_path = {path: run[0] for path, run in runs.items()}
-    phase2_stream(edges, dev)
+    timed_graph = phase2_stream(edges, dev)
+    runs["dist-stream-pass"] = phase2_dist_stream(edges, timed_graph, dev)
+    del timed_graph
     phase3(dev)
 
     # The row each kernel's times come from: its widest main-path shape, on

@@ -12,8 +12,12 @@ space where there is one; these directed edges are not degree-symmetric, so
 the ids stay, as in the JAX package), and returns the forward and its
 arguments. Its first call on the card builds the kernels (K1) from the
 repository's sources.
-:func:`dryrun_multichip` is the JAX package's multi-device dry run over the
-parts of one process on the caller's device.
+:func:`dryrun_multichip` is the JAX package's multi-device dry run, whole,
+over the mesh positions of one process on the caller's device: the
+partitioned ``fit`` runs, the distributed GAT and GIN, the streamed
+aggregation with the graph and the features on the host
+(``DistEdgeStream``) and a tensor-parallel GCN step on a (data, model)
+mesh.
 """
 
 from __future__ import annotations
@@ -23,10 +27,11 @@ import math
 import numpy as np
 import torch
 
-from gnn_tpu_torch.graphs import Data
+from gnn_tpu_torch.graphs import Data, gcn_norm
 from gnn_tpu_torch.graphs.generate import power_law, stochastic_block_model
 from gnn_tpu_torch.models import GAT, GCN, GIN
 from gnn_tpu_torch.nn.losses import cross_entropy
+from gnn_tpu_torch.optim import Adam
 
 __all__ = ["entry", "dryrun_multichip"]
 
@@ -63,16 +68,19 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """The first half of the JAX package's multi-device dry run
-    (``__graft_entry__.py:108-163``) over ``n_devices`` parts of one process
-    on ``device``: ``fit`` of the GCN with halo 'alltoall', again with
-    ``dist.local_blocked=8`` (the community order, halo 'overlap'), the
-    flagship ``encoder_gcn`` (mask-aware BatchNorm), then a distributed GAT's
-    loss and gradient and a distributed GIN's loss; every loss must be
-    finite. Its ``DistEdgeStream`` part (:165-176) and its tensor-parallel
-    half over a (data, model) mesh (:178-231) wait for the next slice of
-    ROADMAP Queue 1 item 15."""
-    from gnn_tpu_torch.parallel import make_mesh, shard_node_array
+    """The JAX package's multi-device dry run (``__graft_entry__.py:51-231``)
+    over ``n_devices`` mesh positions of one process on ``device``: ``fit``
+    of the GCN with halo 'alltoall', again with ``dist.local_blocked=8`` (the
+    community order, halo 'overlap'), the flagship ``encoder_gcn``
+    (mask-aware BatchNorm), a distributed GAT's loss and gradient and a
+    distributed GIN's loss; the streamed aggregation of the same graph with
+    its edges and features on the host (``DistEdgeStream``, chunks of 64
+    edges, one K1 launch a chunk); then tensor parallelism: a GCN 16 -> 32
+    -> 4 on a (n/2, 2) (data, model) mesh (n, 1 for an odd n), its Linear
+    weights sharded over ``model``, one Adam step. Every loss must be
+    finite."""
+    from gnn_tpu_torch.graphs.streaming import DistEdgeStream
+    from gnn_tpu_torch.parallel import make_mesh, partition_graph, shard_model, shard_node_array
     from gnn_tpu_torch.train import Config, fit
 
     device = torch.device(device)
@@ -103,3 +111,29 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         grads = [p.grad for p in model.parameters() if p.requires_grad]
         if not math.isfinite(loss.item()) or not all(torch.isfinite(g).all() for g in grads):
             raise AssertionError(f"dryrun_multichip: non-finite {name} loss {loss.item()} or gradient")
+
+    # the streamed aggregation with the graph and the features on the host:
+    # each part streams its destinations' in-edges, no collective
+    x_host = data.x.numpy()
+    stream = DistEdgeStream(data.edge_index.numpy(), num_nodes=data.num_nodes, num_parts=n_devices, chunk_edges=64)
+    out = stream.spmm_host(x_host, mesh)
+    if tuple(out.shape) != x_host.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"dryrun_multichip: DistEdgeStream gave {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+
+    # tensor parallelism over a 2-D (data, model) mesh
+    model_ax = 2 if n_devices % 2 == 0 else 1
+    mesh = make_mesh((n_devices // model_ax, model_ax), ("data", "model"), devices=[device] * n_devices)
+    n = 16 * n_devices
+    ei, w = gcn_norm(power_law(n, 4 * n, seed=0), num_nodes=n)
+    dist = partition_graph(ei, w, num_nodes=n, mesh=mesh, halo="alltoall")
+    rng = np.random.default_rng(0)
+    x = shard_node_array(dist, rng.normal(size=(n, 16)).astype(np.float32), mesh)
+    y = dist.shard_nodes(torch.from_numpy(rng.integers(0, 4, n)).to(device))
+    valid = dist.shard_nodes(torch.ones(n, dtype=torch.bool, device=device), fill=False)
+    model = shard_model(GCN(16, 32, 4, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(device), mesh)
+    opt = Adam(model.parameters(), lr=1e-2)
+    loss = cross_entropy(model(x, dist), y, valid)  # the padding rows never enter the loss
+    loss.backward()
+    opt.step()
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"dryrun_multichip: non-finite tensor-parallel loss {loss.item()}")

@@ -15,6 +15,14 @@ variance ``var * n / max(n - 1, 1)`` and no gradient through them; in
 ``x.shape[:-1]``) leaves rows out of the statistics, not out of the output.
 The running mean and variance are float32 buffers of the module: the JAX
 package keeps them in its ``State`` store (see :mod:`gnn_tpu_torch.nn.state`).
+
+``BatchNorm.process_group`` (None by default; ``fit`` sets it for a run in a
+``torch.distributed`` group): the rows of x are spread over that group's
+processes, and the masked statistics are the group's: the sums and the
+count, then the sums of squared distances, each summed over the group by a
+differentiable all-reduce (its backward sums the gradients over the group),
+as the single-device statistics over all the rows. Only the masked path
+reduces (a group always passes the validity mask of its padded layout).
 """
 
 from __future__ import annotations
@@ -22,10 +30,33 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["LayerNorm", "BatchNorm"]
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group; the backward sums the gradients over it too
+    (every process's loss depends on every process's rows)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        tdist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        tdist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _AllReduceSum.apply(x, group)
 
 
 def _affine(module: nn.Module, num_features: int, on: bool, dtype) -> None:
@@ -77,6 +108,7 @@ class BatchNorm(nn.Module):
         _affine(self, num_features, affine, dtype)
         self.register_buffer("running_mean", torch.zeros(num_features, dtype=torch.float32))
         self.register_buffer("running_var", torch.ones(num_features, dtype=torch.float32))
+        self.process_group = None
 
     def forward(self, x: torch.Tensor, *, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         xf = x.float()
@@ -96,10 +128,16 @@ class BatchNorm(nn.Module):
                         f"x.shape[:-1] = {tuple(x.shape[:-1])}"
                     )
                 w = mask.float().unsqueeze(-1)
-                cnt = w.sum().clamp_min(1.0)
-                mean = (xf * w).sum(axes) / cnt
+                group = self.process_group
+                if group is None:
+                    cnt = w.sum().clamp_min(1.0)
+                    mean = (xf * w).sum(axes) / cnt
+                else:  # the sums and the count in one all-reduce
+                    sums = _group_sum(torch.cat([(xf * w).sum(axes), w.sum().reshape(1)]), group)
+                    cnt = sums[-1].clamp_min(1.0)
+                    mean = sums[:-1] / cnt
                 # two passes: the masked mean first, then the squared distances
-                var = (((xf - mean) ** 2) * w).sum(axes) / cnt
+                var = _group_sum((((xf - mean) ** 2) * w).sum(axes), group) / cnt
                 unbiased = var * (cnt / (cnt - 1.0).clamp_min(1.0))
             m = self.momentum
             with torch.no_grad():

@@ -12,8 +12,10 @@ rows each part sends. Within one process that gather already lays them out
 as the parts receive them (the JAX ``all_to_all`` is the transpose of the
 gathered [L, P, H, F] rows, and the gather reads them in that order); in a
 ``torch.distributed`` group one ``all_to_all_single`` with equal splits moves
-them between processes. ``'allgather'`` is the identity in one process and
-``all_gather_into_tensor`` in a group; its reverse, ``reduce_scatter_tensor``.
+them between the processes of the mesh's data axis (``DistGraph.group``, the
+mesh's ``data_group``: every process unless a model axis spans processes).
+``'allgather'`` is the identity in one process and ``all_gather_into_tensor``
+in a group; its reverse, ``reduce_scatter_tensor``.
 
 * :func:`spmm_dist`: out = A x. allgather: gather, K1 over ``adj``; backward:
   gather g, K1 over ``t_adj``. alltoall: K1 over ``[own | recv]``. overlap:
@@ -86,7 +88,7 @@ def _exchange(dist: DistGraph, v: torch.Tensor, idx: torch.Tensor, out=None) -> 
             return torch.index_select(v, 0, idx, out=out) if out is not None else v.index_select(0, idx)
         sent = v.index_select(0, idx)
         recv = torch.empty_like(sent)
-        tdist.all_to_all_single(recv, sent)
+        tdist.all_to_all_single(recv, sent, group=dist.group)
         recv = recv.view(P // L, L, L * H, F).transpose(0, 1).reshape(L * P * H, F)
         if out is None:
             return recv
@@ -103,7 +105,7 @@ def _return_partials(dist: DistGraph, rem: torch.Tensor) -> torch.Tensor:
     with torch.profiler.record_function("halo.exchange"):
         sent = rem.view(L, P // L, L, H, F).permute(1, 2, 0, 3, 4).contiguous()
         recv = torch.empty_like(sent)
-        tdist.all_to_all_single(recv, sent)
+        tdist.all_to_all_single(recv, sent, group=dist.group)
     return recv.view(-1, F)
 
 
@@ -113,7 +115,7 @@ def _all_gather(dist: DistGraph, v: torch.Tensor) -> torch.Tensor:
     out = v.new_empty((dist.num_parts * dist.n_max, v.shape[1]))
     with torch.profiler.record_function("halo.exchange"), warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)  # renamed in later torch releases
-        tdist.all_gather_into_tensor(out, v.contiguous())
+        tdist.all_gather_into_tensor(out, v.contiguous(), group=dist.group)
     return out
 
 
@@ -123,7 +125,7 @@ def _reduce_scatter(dist: DistGraph, v: torch.Tensor) -> torch.Tensor:
     out = v.new_empty((dist.num_local_parts * dist.n_max, v.shape[1]))
     with torch.profiler.record_function("halo.exchange"), warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)  # renamed in later torch releases
-        tdist.reduce_scatter_tensor(out, v.contiguous())
+        tdist.reduce_scatter_tensor(out, v.contiguous(), group=dist.group)
     return out
 
 

@@ -1,21 +1,32 @@
-"""The device mesh of a node-partitioned graph.
+"""The device mesh: a ``data`` axis of graph parts and a ``model`` axis of
+tensor-parallel shards.
 
 Port of ``gnn_tpu/parallel/mesh.py``. A :class:`Mesh` names its axes and
-sizes and holds, for each ``data`` part of this process, its device. The
-parts of one process share that process's device: one process can hold all
-P parts of a partition on one card (``devices=[torch.device("cuda:0")] *
-4``) or on the CPU (``[torch.device("cpu")] * P``, the counterpart of the JAX
-tests' virtual devices), and their halo exchange is then index work on that
-device. Where a ``torch.distributed`` group is initialized
-(:func:`gnn_tpu_torch.parallel.multihost.initialize`), the mesh spans every
-process of it: process r holds the parts ``[r L, (r + 1) L)`` and the
-exchange rides the group's collectives.
+sizes, row-major as a JAX mesh over its devices: position ``i`` is part ``i
+// M`` of the first (partition, ``data``) axis and shard ``i % M`` of the
+second (``model``) axis, of size ``M`` (1 when there is none). Each process
+holds a contiguous run of positions, all on its one device: one process can
+hold every position (``devices=[torch.device("cuda:0")] * 4``, or ``[cpu] *
+P``, the counterpart of the JAX tests' virtual devices), and then a halo
+exchange is index work on that device and the model shards of a part are
+column blocks side by side there, with no collective.
 
-Only the partition axis runs: an axis after the first (the JAX package's
-``model`` axis, tensor parallelism) larger than 1 raises
-``NotImplementedError`` (ROADMAP Queue 1 item 15). The GSPMD annotations of
-the JAX module (``replicated``, ``shard``, ``P``, ``NamedSharding``) have no
-counterpart: the port places tensors itself.
+Where a ``torch.distributed`` group is initialized
+(:func:`gnn_tpu_torch.parallel.multihost.initialize`), the mesh spans every
+process of it, each contributing ``devices``. A process holds either whole
+rows of the mesh (``len(devices)`` a multiple of ``M``: several parts, every
+shard of each) or a run of shards of one part (``M`` a multiple of
+``len(devices)``). The collectives then ride subgroups: ``data_group`` (the
+processes that hold the same shards, one per run of parts) carries the halo
+exchange and every sum over the graph (the loss's and the accuracies'
+counts, BatchNorm's statistics, the gradients), ``model_group`` (the
+processes that hold the shards of the same part) carries the gather of the
+column blocks and the sum of ``dx`` in :mod:`~gnn_tpu_torch.parallel.
+tensor_parallel`; it is None where one process holds every shard. The GSPMD
+annotations of the JAX module (``replicated``, ``shard``, ``P``,
+``NamedSharding``) have no counterpart: the port places tensors itself, and
+:func:`~gnn_tpu_torch.parallel.tensor_parallel.shard_model` is the placement
+``NamedSharding(mesh, P("model", None))`` of every Linear's weight.
 """
 
 from __future__ import annotations
@@ -34,10 +45,14 @@ __all__ = ["Mesh", "make_mesh"]
 class Mesh:
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
-    devices: Tuple[torch.device, ...]  # this process's parts, one device for all
+    devices: Tuple[torch.device, ...]  # this process's positions, one device for all
     process_index: int = 0
     process_count: int = 1
-    grouped: bool = False  # exchanges ride the torch.distributed group
+    grouped: bool = False  # collectives ride the torch.distributed group
+    data_group: object = None  # ProcessGroup of the data axis (grouped only)
+    model_group: object = None  # ProcessGroup of the model axis, where it spans processes
+    data_index: int = 0  # this process's index among the data group's processes
+    data_count: int = 1  # the processes along the data axis
 
     @property
     def shape(self) -> dict:
@@ -53,8 +68,29 @@ class Mesh:
         return self.devices[0]
 
     @property
+    def model_size(self) -> int:
+        """M: the size of the model axis (the second), 1 without one."""
+        return self.axis_sizes[1] if len(self.axis_sizes) > 1 else 1
+
+    @property
+    def first_position(self) -> int:
+        return self.process_index * len(self.devices)
+
+    @property
     def num_local_parts(self) -> int:
-        return len(self.devices)
+        """The ``data`` parts this process holds (its positions count the
+        model shards too)."""
+        return max(len(self.devices) // self.model_size, 1)
+
+    @property
+    def first_part(self) -> int:
+        return self.first_position // self.model_size
+
+    @property
+    def local_shards(self) -> range:
+        """The model shards this process holds of each of its parts."""
+        m0 = self.first_position % self.model_size
+        return range(m0, m0 + min(len(self.devices), self.model_size))
 
 
 def _normalize(device) -> torch.device:
@@ -62,6 +98,18 @@ def _normalize(device) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def _subgroups(world: int, rank: int, M: int, n_local: int):
+    """(data group, model group, data index, data count) of a grouped mesh.
+    Every process makes every subgroup, in the same order
+    (``new_group`` is collective over the world)."""
+    if n_local % M == 0:  # whole rows of the mesh: data across every process
+        return tdist.group.WORLD, None, rank, world
+    span = M // n_local  # the processes that share one part
+    model_groups = [tdist.new_group(list(range(d * span, (d + 1) * span))) for d in range(world // span)]
+    data_groups = [tdist.new_group(list(range(m, world, span))) for m in range(span)]
+    return data_groups[rank % span], model_groups[rank // span], rank // span, world // span
 
 
 def make_mesh(
@@ -72,9 +120,11 @@ def make_mesh(
 ) -> Mesh:
     """A mesh over every process of the ``torch.distributed`` group (one
     process when none is initialized), each contributing ``devices``: its
-    parts' devices, one device repeated. ``devices=None`` gives each process
-    one part on its card. Defaults: every part on the first axis (``data``),
-    the others of size 1; ``shape`` overrides the sizes."""
+    positions' devices, one device repeated. ``devices=None`` gives each
+    process one position on its card. Defaults: every position on the first
+    axis (``data``), the others of size 1; ``shape`` overrides the sizes.
+    The first axis partitions the graph, the second (``model``) shards the
+    Linear layers; a third axis must have size 1."""
     grouped = tdist.is_available() and tdist.is_initialized()
     world = tdist.get_world_size() if grouped else 1
     rank = tdist.get_rank() if grouped else 0
@@ -97,9 +147,17 @@ def make_mesh(
         raise ValueError(f"mesh shape {shape} does not name one size per axis of {axes}")
     if int(np.prod(shape)) != n:
         raise ValueError(f"mesh shape {shape} does not match {n} devices")
-    if any(s > 1 for s in shape[1:]):
-        raise NotImplementedError(
-            f"mesh axes {dict(zip(axes, shape))}: only the partition axis runs; tensor parallelism "
-            "over a second axis (the 'model' axis) is not ported yet (ROADMAP Queue 1 item 15)"
+    if any(s > 1 for s in shape[2:]):
+        raise ValueError(
+            f"mesh axes {dict(zip(axes, shape))}: the port's meshes have a partition (data) axis and a "
+            "model axis; every further axis must have size 1"
         )
-    return Mesh(axes, shape, devices, process_index=rank, process_count=world, grouped=grouped)
+    M, n_local = (shape[1] if len(shape) > 1 else 1), len(devices)
+    if n_local % M and M % n_local:
+        raise ValueError(
+            f"{n_local} positions a process and a model axis of {M}: a process holds whole rows of the "
+            "mesh (a multiple of the model axis) or a run of one part's shards (a divisor of it)"
+        )
+    groups = _subgroups(world, rank, M, n_local) if grouped else (None, None, 0, 1)
+    return Mesh(axes, shape, devices, process_index=rank, process_count=world, grouped=grouped,
+                data_group=groups[0], model_group=groups[1], data_index=groups[2], data_count=groups[3])

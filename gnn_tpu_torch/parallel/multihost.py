@@ -17,17 +17,22 @@ Nothing on the machine tells a process of its peers: without arguments,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); otherwise pass the address
 (``host:port`` for TCP, or a ``file://`` store), the process count and this
 process's index.
+
+:func:`all_reduce_gradients` sums the gradients of replicated parameters
+over a group in one coalesced all-reduce (a dtype), the step that keeps
+every process's parameters equal bit for bit after the optimizer: ``fit``
+calls it after ``backward`` over the mesh's ``data_group``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Iterable, List, Optional
 
 import torch
 import torch.distributed as tdist
 
-__all__ = ["initialize", "is_multihost", "process_count", "local_devices"]
+__all__ = ["initialize", "is_multihost", "process_count", "local_devices", "all_reduce_gradients"]
 
 
 def initialize(
@@ -83,3 +88,20 @@ def local_devices() -> List[torch.device]:
     """This process's cards, or the CPU where it has none."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     return [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
+
+
+def all_reduce_gradients(parameters: Iterable[torch.Tensor], group) -> None:
+    """Sum every parameter's ``.grad`` over ``group`` in place (those whose
+    grad is None are left so on every process): one all-reduce over the
+    gradients laid end to end, one a dtype."""
+    by_dtype = {}
+    for p in parameters:
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        tdist.all_reduce(flat, group=group)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset : offset + g.numel()].view_as(g))
+            offset += g.numel()

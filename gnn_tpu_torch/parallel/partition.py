@@ -96,6 +96,7 @@ class DistGraph:
     num_local_parts: int = 1  # L: the parts this process holds
     first_part: int = 0  # the global index of its first part
     grouped: bool = False  # the exchanges ride a torch.distributed group
+    group: object = None  # that group: the mesh's data_group (ProcessGroup)
 
     @property
     def n_buf(self) -> int:
@@ -281,11 +282,13 @@ def partition_graph(
     align = R_blk if R_blk else 8
     n_max = ((n_max + align - 1) // align) * align
 
-    # this process's parts
+    # this process's parts; W, rank: the processes along the data axis and
+    # this one's index among them (the exchange's group)
     if mesh is None:
-        W, rank, grouped, device = 1, 0, False, torch.device("cpu")
+        W, rank, grouped, group, device = 1, 0, False, None, torch.device("cpu")
     else:
-        W, rank, grouped, device = mesh.process_count, mesh.process_index, mesh.grouped, mesh.device
+        W, rank, grouped, device = mesh.data_count, mesh.data_index, mesh.grouped, mesh.device
+        group = mesh.data_group
         if P != W * mesh.num_local_parts:
             raise ValueError(f"{P} parts over {W} processes of {mesh.num_local_parts} parts each")
     L = P // W
@@ -480,6 +483,6 @@ def partition_graph(
         inc=inc, send=send_csr, esrc_index=esrc_index, edst_index=edst_index, dst_row_ptr=dst_row_ptr,
         num_parts=P, n_max=int(n_max), num_nodes=int(num_nodes), mesh=mesh, axis_name=axis_name,
         halo=halo, block_rows=R_blk, h_max=int(h_max), e_max=int(e_max), has_weight=edge_weight is not None,
-        num_local_parts=L, first_part=parts.start, grouped=grouped,
+        num_local_parts=L, first_part=parts.start, grouped=grouped, group=group,
     )
     return out if device.type == "cpu" else out.to(device)

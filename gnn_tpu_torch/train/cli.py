@@ -17,15 +17,26 @@ bucket; ``true`` raises on a graph that is not degree-symmetric);
 ``--train.checkpoint_dir D [--train.checkpoint_every K]`` writes checkpoints
 (``fit(resume=True)`` continues from the latest). Any Config field is overridable with a dotted
 flag. --config loads a JSON config file first; dotted flags override it.
+
+Started by ``torchrun`` with more than one process (``WORLD_SIZE``), each
+process joins the group first (``parallel.multihost.initialize``: gloo for
+``--device cpu``, NCCL on the cards) and ``fit`` spreads ``dist.num_parts``
+over the processes; rank 0 prints the final line::
+
+    torchrun --nproc-per-node 2 -m gnn_tpu_torch.train.cli --dataset sbm --device cpu --dist.num_parts 4
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Tuple
 
+import torch.distributed as tdist
+
 from gnn_tpu_torch.graphs.datasets import load_dataset
+from gnn_tpu_torch.parallel import multihost
 from gnn_tpu_torch.train.config import Config
 from gnn_tpu_torch.train.loop import fit
 
@@ -71,6 +82,18 @@ def parse_args(argv=None) -> Tuple[Config, str]:
 
 def main(argv=None) -> int:
     cfg, device = parse_args(argv)
+    grouped = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if grouped:
+        multihost.initialize(device=device)
+    try:
+        return _run(cfg, device)
+    finally:
+        if grouped:
+            tdist.destroy_process_group()
+
+
+def _run(cfg: Config, device: str) -> int:
+    rank = tdist.get_rank() if tdist.is_initialized() else 0
     print(f"config:\n{cfg.to_json()}", file=sys.stderr)
     data = load_dataset(cfg.dataset, cfg.data_root)
     print(
@@ -79,7 +102,7 @@ def main(argv=None) -> int:
         file=sys.stderr,
     )
     _, _, history = fit(cfg, data, device=device)
-    if history:
+    if history and rank == 0:
         final = history[-1]
         print(
             "final: "

@@ -51,9 +51,26 @@ With ``dist.num_parts = P > 1`` (``gnn_tpu/train/loop.py:135-324``):
   the P parts samples ``batch_size / P`` of the step's seeds with its own
   generator, and the loss is the mean of the parts' losses.
 
-Both hold every part in this process, on one device; ``fit`` in a
-``torch.distributed`` group of more than one process is not ported
-(``NotImplementedError``, ROADMAP Queue 1 item 15).
+Without a process group, one process holds every part, on ``device``. In a
+``torch.distributed`` group of W processes
+(:func:`gnn_tpu_torch.parallel.multihost.initialize`; a group of one
+included) each process holds ``P / W`` of them on its own ``device``, the
+counterpart of the JAX ``fit`` over a mesh that spans hosts, and the step's
+sums over the graph ride the group (the mesh's ``data_group``): the masked
+loss and the accuracies divide by the group's count of the mask (each
+process's loss is its share, ``nn.losses``), BatchNorm's masked statistics
+are the group's (``BatchNorm.process_group``, set for the run), the
+gradients are summed over the group after ``backward`` (one coalesced
+all-reduce, before clipping), so parameters and optimizer state stay equal
+bit for bit on every process; the logged loss and accuracies are the
+group's, and early stopping decides on them. A data-parallel sampled step
+keeps each global part's generator (``train.seed + 2 + p``) and its loss is
+the mean over all P parts. Dropout draws from one stream a process (rank
+0's is the one-process stream), so with dropout on, a group's masks differ
+from one process's; without, its run equals one process's up to the order
+of float32 sums (bit for bit in a group of one). Rank 0 writes the
+checkpoints (with every process's random streams) and logs; every process
+restores them.
 """
 
 from __future__ import annotations
@@ -67,6 +84,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 from torch import nn
 from torch.profiler import record_function
 
@@ -77,9 +95,10 @@ from gnn_tpu_torch.graphs.data import Data
 from gnn_tpu_torch.graphs.sampling import NeighborSampler
 from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn.losses import accuracy, cross_entropy
+from gnn_tpu_torch.nn.normalization import BatchNorm
 from gnn_tpu_torch.nn.state import buffer_state
 from gnn_tpu_torch.optim import SGD, Adam, AdamW, clip_by_global_norm
-from gnn_tpu_torch.parallel import make_mesh, multihost
+from gnn_tpu_torch.parallel import Mesh, make_mesh, multihost
 from gnn_tpu_torch.train.checkpoint import Checkpointer
 from gnn_tpu_torch.train.config import Config
 from gnn_tpu_torch.train.host_loader import HostBatchLoader
@@ -134,8 +153,7 @@ def build_optimizer(cfg: Config, params) -> torch.optim.Optimizer:
 
 
 def _check_supported(cfg: Config) -> None:
-    """The JAX ``fit``'s own guards first, with its errors; then what the
-    port does not run yet."""
+    """The JAX ``fit``'s own guards, with its errors, and the port's own."""
     t = cfg.train
     dp_sampled = cfg.dist.num_parts > 1 and t.batch_size > 0
     if dp_sampled and t.batch_size % cfg.dist.num_parts:
@@ -150,11 +168,10 @@ def _check_supported(cfg: Config) -> None:
             "train.host_features is the single-process host-gather path; it does not "
             "combine with dist.num_parts"
         )
-    if cfg.dist.num_parts > 1 and multihost.is_multihost():
-        raise NotImplementedError(
-            "fit over a torch.distributed group of more than one process (the gradient, loss and "
-            "BatchNorm all-reduce) is not ported yet (ROADMAP Queue 1 item 15); fit holds every part "
-            "of dist.num_parts in one process"
+    world = multihost.process_count()
+    if cfg.dist.num_parts > 1 and cfg.dist.num_parts % world:
+        raise ValueError(
+            f"dist.num_parts={cfg.dist.num_parts} must divide evenly over the {world} processes of the group"
         )
     if str(t.reorder).lower() not in _REORDER:
         raise ValueError(f"unknown train.reorder '{t.reorder}'")
@@ -165,19 +182,21 @@ def _split_masks(data: Data) -> dict:
 
 
 @torch.no_grad()
-def evaluate(model: nn.Module, data: Data, adj: Adjacency) -> dict:
+def evaluate(model: nn.Module, data: Data, adj: Adjacency, group=None) -> dict:
     """Accuracy per split, in inference mode (dropout off, BatchNorm on its
-    running statistics)."""
+    running statistics). ``group``: the process group over which the rows
+    are spread; the accuracies are then the group's."""
     was_training = model.training
     model.eval()
     logits = model(data.x, adj)
     model.train(was_training)
-    out = {}
-    for split in _SPLITS:
-        mask = getattr(data, f"{split}_mask")
-        if mask is not None:
-            out[f"{split}_acc"] = float(accuracy(logits, data.y, mask))
-    return out
+    splits = [s for s in _SPLITS if getattr(data, f"{s}_mask") is not None]
+    if not splits:
+        return {}
+    accs = torch.stack([accuracy(logits, data.y, getattr(data, f"{s}_mask"), group=group) for s in splits])
+    if group is not None:
+        tdist.all_reduce(accs, group=group)  # the shares sum to the group's accuracies
+    return {f"{s}_acc": float(a) for s, a in zip(splits, accs.tolist())}
 
 
 class _HostFeed:
@@ -270,8 +289,11 @@ class TrainStep:
     ``data`` and ``adj`` as they lie on the device (``adj`` None with
     ``train.host_features``, whose ``data`` stays where it was; a partitioned
     step's ``adj`` is its ``DistGraph`` and ``data`` its padded layout), the
-    hop adjacencies of a sampled step, the host feed, and the random streams
-    (a sampler generator a part: one without ``dist.num_parts``)."""
+    hop adjacencies of a sampled step, the host feed, the random streams
+    (a sampler generator a part of this process: one without
+    ``dist.num_parts``), and the mesh of ``dist.num_parts`` (None without).
+    In a process group ``loss()`` is this process's share of the step's loss
+    (the shares sum over ``group`` to it) and ``data`` holds its rows."""
 
     loss: Callable[[], torch.Tensor]
     data: Data
@@ -281,6 +303,13 @@ class TrainStep:
     dropout_gen: torch.Generator
     sample_gens: list
     rng_np: np.random.Generator
+    mesh: Optional[Mesh] = None
+
+    @property
+    def group(self):
+        """The process group the step's sums ride (the mesh's data group),
+        None in one process."""
+        return self.mesh.data_group if self.mesh is not None and self.mesh.grouped else None
 
 
 def _check_mask_kwarg(model: nn.Module) -> None:
@@ -299,13 +328,12 @@ def _check_mask_kwarg(model: nn.Module) -> None:
     )
 
 
-def _partitioned(cfg: Config, data: Data, model: nn.Module, device: torch.device):
-    """The full graph in ``dist.num_parts`` parts on ``device``: (the padded
-    ``Data``, the ``DistGraph``, the model's extra keywords, the loss's
-    mask)."""
+def _partitioned(cfg: Config, data: Data, model: nn.Module, mesh: Mesh):
+    """The full graph in ``dist.num_parts`` parts over ``mesh``: (this
+    process's padded ``Data``, the ``DistGraph``, the model's extra
+    keywords, the loss's mask)."""
     _check_mask_kwarg(model)
-    d = cfg.dist
-    mesh = make_mesh((d.num_parts,), (d.axis_name,), devices=[device] * d.num_parts)
+    d, device = cfg.dist, mesh.device
     halo, blocks = d.halo, int(d.local_blocked)
     if blocks and halo != "overlap":
         # local_blocked needs the local/remote edge split of 'overlap'; the
@@ -324,7 +352,7 @@ def _partitioned(cfg: Config, data: Data, model: nn.Module, device: torch.device
     pad = lambda a, fill=0: None if a is None else graph.shard_nodes(a.to(device), fill=fill)
     valid = pad(torch.ones(data.num_nodes, dtype=torch.bool), False)
     masks = {f"{s}_mask": pad(getattr(data, f"{s}_mask"), False) for s in _SPLITS}
-    padded = Data(x=pad(data.x), y=pad(data.y), num_nodes=d.num_parts * graph.n_max, **masks)
+    padded = Data(x=pad(data.x), y=pad(data.y), num_nodes=graph.num_local_parts * graph.n_max, **masks)
     # without a train_mask the loss takes every real node, none of the padding
     loss_mask = valid if padded.train_mask is None else padded.train_mask
     return padded, graph, {"mask": valid} if any(True for _ in model.buffers()) else {}, loss_mask
@@ -339,8 +367,16 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
     t = cfg.train
     sampled = t.batch_size > 0
     n_parts = max(cfg.dist.num_parts, 1)
-    adj = sampler = feed = hop_adjs = None
+    adj = sampler = feed = hop_adjs = mesh = None
     sample_gens, kwargs, loss_mask = [], {}, None
+    if n_parts > 1 and not t.host_features:
+        # P parts over the group's processes (all of them in this one
+        # without a group), each process's on its device
+        mesh = make_mesh((n_parts,), (cfg.dist.axis_name,),
+                         devices=[device] * (n_parts // multihost.process_count()))
+    group = mesh.data_group if mesh is not None and mesh.grouped else None
+    rank = mesh.process_index if mesh is not None else 0
+    local_parts = range(mesh.first_part, mesh.first_part + mesh.num_local_parts) if mesh is not None else range(1)
     if sampled:
         if data.train_mask is None:
             raise ValueError("train.batch_size > 0 draws its seeds from data.train_mask, which is None")
@@ -355,7 +391,10 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
         feed = _HostFeed(loader, device)
         hop_adjs = [a.to(device) for a in loader.adjacencies(t.batch_size)]
     elif n_parts > 1 and not sampled:
-        data, adj, kwargs, loss_mask = _partitioned(cfg, data, model, device)
+        data, adj, kwargs, loss_mask = _partitioned(cfg, data, model, mesh)
+        for module in model.modules():
+            if isinstance(module, BatchNorm):
+                module.process_group = group  # the statistics over every process's rows
     else:
         # train.reorder: relabel the nodes by degree bucket or into
         # community-packed windows (exact: GNNs are permutation-equivariant;
@@ -370,10 +409,12 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
         if sampled:
             # data-parallel: a generator and batch_size / P seeds a part
             sampler = NeighborSampler(data, t.fanouts).to(device)
-            sample_gens = [torch.Generator(device=device).manual_seed(t.seed + 2 + p) for p in range(n_parts)]
+            sample_gens = [torch.Generator(device=device).manual_seed(t.seed + 2 + p) for p in local_parts]
             hop_adjs = sampler.adjacencies(t.batch_size // n_parts)
-    dropout_gen = torch.Generator(device=device).manual_seed(t.seed + 1)
-    rng_np = np.random.default_rng(t.seed)
+    # one dropout stream a process (rank 0's that of one process)
+    seed = t.seed + 1 if rank == 0 else int(np.random.SeedSequence([t.seed + 1, rank]).generate_state(1)[0])
+    dropout_gen = torch.Generator(device=device).manual_seed(seed)
+    rng_np = np.random.default_rng(t.seed)  # the same seeds on every process
 
     def sampled_loss(gen: torch.Generator, seeds: np.ndarray) -> torch.Tensor:
         with record_function("sampled.sample"):
@@ -386,17 +427,18 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
     def loss() -> torch.Tensor:
         if not sampled:
             mask = data.train_mask if loss_mask is None else loss_mask
-            return cross_entropy(model(data.x, adj, generator=dropout_gen, **kwargs), data.y, mask)
+            return cross_entropy(model(data.x, adj, generator=dropout_gen, **kwargs), data.y, mask, group=group)
         seeds = rng_np.choice(train_ids, t.batch_size)
         if feed is not None:
             feats, ys = feed(seeds)
             return cross_entropy(model.forward_sampled(feats, hop_adjs, generator=dropout_gen), ys)
         if n_parts == 1:
             return sampled_loss(sample_gens[0], seeds)
-        losses = [sampled_loss(gen, part) for gen, part in zip(sample_gens, np.split(seeds, n_parts))]
-        return torch.stack(losses).mean()
+        parts = np.split(seeds, n_parts)[local_parts.start : local_parts.stop]
+        losses = torch.stack([sampled_loss(gen, part) for gen, part in zip(sample_gens, parts)])
+        return losses.mean() if group is None else losses.sum() / n_parts  # a share of the P parts' mean
 
-    return TrainStep(loss, data, adj, hop_adjs, feed, dropout_gen, sample_gens, rng_np)
+    return TrainStep(loss, data, adj, hop_adjs, feed, dropout_gen, sample_gens, rng_np, mesh)
 
 
 def fit(
@@ -455,22 +497,37 @@ def fit(
     data, adj, feed, hop_adjs = train_step.data, train_step.adj, train_step.feed, train_step.hop_adjs
     loader = feed.loader if feed is not None else None
     dropout_gen, sample_gens, rng_np = train_step.dropout_gen, train_step.sample_gens, train_step.rng_np
+    group, mesh = train_step.group, train_step.mesh
+    rank, world = (mesh.process_index, mesh.process_count) if group is not None else (0, 1)
     params = list(model.parameters())
     opt = build_optimizer(cfg, params)
-    logger = MetricLogger(t.log_file, echo=verbose)
+    logger = MetricLogger(t.log_file if rank == 0 else "", echo=verbose and rank == 0)
 
     ckpt, start_epoch = None, 0
     if t.checkpoint_dir:
         ckpt = Checkpointer(t.checkpoint_dir)
         if resume and ckpt.latest_step() is not None:
             _, _, _, extra = ckpt.restore(model, opt, buffer_state(model) or None)
-            if extra and "random_state" in extra:
-                _restore_random_state(extra["random_state"], dropout_gen, sample_gens, rng_np, loader)
+            if extra and ("random_state" in extra or "random_states" in extra):
+                # a run in a group keeps every process's streams, in rank order
+                states = extra.get("random_states") or [extra["random_state"]]
+                if len(states) != world:
+                    raise ValueError(
+                        f"the checkpoint holds the random streams of {len(states)} processes; this run has {world}"
+                    )
+                _restore_random_state(states[rank], dropout_gen, sample_gens, rng_np, loader)
             start_epoch = int(ckpt.latest_step())
 
     def save_checkpoint(step: int) -> None:
-        extra = {"random_state": _random_state(dropout_gen, sample_gens, rng_np, loader)}
-        ckpt.save(step, model, opt, buffer_state(model) or None, extra)
+        state = _random_state(dropout_gen, sample_gens, rng_np, loader)
+        if group is None:
+            ckpt.save(step, model, opt, buffer_state(model) or None, {"random_state": state})
+            return
+        states = [None] * world
+        tdist.all_gather_object(states, state)
+        if rank == 0:  # parameters, optimizer state and buffers are the same on every process
+            ckpt.save(step, model, opt, buffer_state(model) or None, {"random_states": states})
+        tdist.barrier()  # no process reads the directory before rank 0 has written it
 
     history = []
     best_val, best_state, patience_left = -1.0, None, t.patience
@@ -481,11 +538,16 @@ def fit(
         opt.zero_grad(set_to_none=True)
         loss = train_step.loss()
         loss.backward()
+        if group is not None:
+            multihost.all_reduce_gradients(params, group)  # before clipping: it reads the group's gradients
         if cfg.optim.grad_clip > 0:
             clip_by_global_norm(params, cfg.optim.grad_clip)
         opt.step()
         thr.step()
         if (epoch + 1) % t.eval_every == 0 or epoch == t.epochs - 1:
+            if group is not None:
+                loss = loss.detach().clone()
+                tdist.all_reduce(loss, group=group)  # the shares sum to the group's loss
             loss_value = loss.item()  # syncs the device
             step_ms = (time.perf_counter() - t_step) * 1e3
             edges_per_s = thr.edges_per_s
@@ -494,7 +556,7 @@ def fit(
                 metrics = host_evaluate(model, feed, hop_adjs, masks, t.batch_size)
                 metrics.update(host_ms)
             else:
-                metrics = evaluate(model, data, adj)
+                metrics = evaluate(model, data, adj, group)
             metrics.update(loss=loss_value, edges_per_s=edges_per_s, step_ms=step_ms)
             logger.log(epoch + 1, **metrics)
             history.append(metrics)
@@ -518,4 +580,7 @@ def fit(
         save_checkpoint(t.epochs)
         ckpt.close()
     logger.close()
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.process_group = None  # set by build_step for this run's group
     return model, buffer_state(model) or None, history

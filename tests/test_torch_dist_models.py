@@ -270,13 +270,31 @@ def test_dryrun_multichip_on_cpu_parts(n_parts):
     dryrun_multichip(n_parts, device="cpu")
 
 
-def test_fit_across_processes_waits_for_item_15(monkeypatch):
-    """fit holds every part in one process; a group of several processes
-    (the gradient, loss and BatchNorm all-reduce) is item 15's remainder."""
+def test_fit_across_processes_waits_for_item_15(monkeypatch, tmp_path):
+    """Ported (the test keeps its earlier name): ``fit`` in a
+    torch.distributed group runs the group path, every loss, statistic and
+    gradient sum an all-reduce, and in a gloo group of one process that path
+    equals the in-process 4-part ``fit`` bit for bit (losses, accuracies,
+    parameters, BatchNorm buffers); a part count that does not divide over
+    the group's processes raises. Two processes: tests/test_torch_group_fit.py."""
+    import torch.distributed as tdist
+
     from gnn_tpu_torch.parallel import multihost
 
-    monkeypatch.setattr(multihost, "is_multihost", lambda: True)
-    data = stochastic_block_model(num_nodes=60, num_classes=2, seed=6)
-    cfg = Config.from_dict({"train": {"epochs": 1}, "dist": {"num_parts": 2}})
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fit(cfg, data, device="cpu", verbose=False)
+    data = stochastic_block_model(num_nodes=96, num_classes=3, seed=6)
+    cfg = _fit_cfg("encoder_gcn", num_parts=4)
+    keys = ("loss", "train_acc", "val_acc", "test_acc")
+    model_a, state_a, want = fit(cfg, data, device="cpu", verbose=False)
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+    try:
+        model_b, state_b, got = fit(cfg, data, device="cpu", verbose=False)
+        assert [[h[k] for k in keys] for h in got] == [[h[k] for k in keys] for h in want]
+        for (name, a), b in zip(model_a.named_parameters(), model_b.parameters()):
+            assert torch.equal(a, b), name
+        assert all(torch.equal(state_a[k], state_b[k]) for k in state_a)
+        assert all(m.process_group is None for m in model_b.modules() if hasattr(m, "process_group"))
+        monkeypatch.setattr(multihost, "process_count", lambda: 3)
+        with pytest.raises(ValueError, match="divide evenly over the 3 processes"):
+            fit(cfg, data, device="cpu", verbose=False)
+    finally:
+        tdist.destroy_process_group()

@@ -133,8 +133,11 @@ def test_make_mesh():
     assert mesh.shape == {"data": 4, "model": 1} and mesh.size == 4 and mesh.num_local_parts == 4
     assert not mesh.grouped and mesh.process_count == 1 and mesh.device == CPU
     assert make_mesh((4,), ("data",), devices=[CPU] * 4).shape == {"data": 4}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        make_mesh((2, 2), ("data", "model"), devices=[CPU] * 4)
+    two = make_mesh((2, 2), ("data", "model"), devices=[CPU] * 4)  # the model axis (tensor parallelism)
+    assert two.shape == {"data": 2, "model": 2} and two.num_local_parts == 2 and two.model_size == 2
+    assert list(two.local_shards) == [0, 1] and two.model_group is None
+    with pytest.raises(ValueError, match="further axis"):
+        make_mesh((2, 1, 2), ("data", "model", "extra"), devices=[CPU] * 4)
     with pytest.raises(ValueError, match="does not match 4 devices"):
         make_mesh((8,), ("data",), devices=[CPU] * 4)
     with pytest.raises(ValueError, match="share one device"):

@@ -166,5 +166,17 @@ def test_device_put_slabbed_round_trips(shape, dtype, tmp_path):
 
 
 def test_dist_edge_stream_waits_for_item_15(edges):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ts.DistEdgeStream(edges[0], num_nodes=N, num_parts=2)
+    """Ported (the name is from before): DistEdgeStream constructs with the
+    JAX geometry, and over 2 parts of the CPU its spmm_host equals the
+    single-device streaming_spmm. More: tests/test_torch_dist_stream.py."""
+    from gnn_tpu_torch.parallel import make_mesh
+
+    ei, w, _ = edges
+    want = js.DistEdgeStream(ei, w, num_nodes=N, num_parts=2, chunk_edges=CHUNK)
+    got = ts.DistEdgeStream(ei, w, num_nodes=N, num_parts=2, chunk_edges=CHUNK)
+    for key in ("n_max", "range_rows", "num_chunks", "u_sizes", "u_max", "has_weight"):
+        assert getattr(got, key) == getattr(want, key), key
+    x = np.random.default_rng(3).normal(size=(N, 6)).astype(np.float32)
+    out = got.spmm_host(x, make_mesh((2,), ("data",), devices=["cpu"] * 2))
+    single = ts.streaming_spmm(ts.EdgeStream(ei, w, num_nodes=N, chunk_edges=CHUNK), torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), single.numpy(), **TOL)

@@ -115,5 +115,7 @@ def test_entry_needs_a_card_and_dryrun_waits_for_item_15(monkeypatch):
         tentry.entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         tentry.dryrun_multichip(8)
-    # ported but for its DistEdgeStream part and tensor-parallel half
-    assert "item 15" in tentry.dryrun_multichip.__doc__
+    # ported whole (the name is from before): its DistEdgeStream part and
+    # its tensor-parallel half too (run on CPU parts in test_torch_dist_models)
+    doc = tentry.dryrun_multichip.__doc__
+    assert "item 15" not in doc and "DistEdgeStream" in doc and "(data, model) mesh" in doc
