@@ -1,6 +1,28 @@
 """Smoke run of the PyTorch / CUDA port (``gnn_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4     # phase 4-cards, one process a card
+
+With ``--cards N`` (N dividing 4; on a host with fewer than N cards it exits
+non-zero) it runs phase 4-cards instead, the ``torch.distributed`` group
+path across N cards over NCCL: it builds once, computes on card 0 the
+in-process 4-part and single-device ``fit`` references of phase 2-dist and
+phase 2-dp-sampled, then spawns one process a card (a store on the local
+host; NCCL's timeout and the launcher's limit end a hung run, naming each
+rank's phase). Each process runs ``spmm_dist`` at F=256 in every halo mode
+with the edge ops at the GAT width (against its rows of single-device K1,
+bitwise on a repeat, the exchange beside one bare collective of its bytes),
+``fit`` of the GCN, the GAT and EncoderGCN (SGD) on 4 parts (loss curves at
+rtol 1e-5 of the in-process run and 1e-4 of one device, parameters equal on
+every card), a profiler trace of 5 GCN steps (the shares of the exchange,
+NCCL's kernels and K1), the data-parallel sampled GraphSAGE (dropout 0; its
+curve step by step at rtol 1e-5 / atol 2e-5 of the in-process run, beside
+in-process curves whose parts' gradients were summed in two orders), the
+tensor-parallel GCN on a (2, 2) mesh, stop-and-resume (bitwise), ``DistEdgeStream`` on the arxiv-scale
+graph and on phase 2-dist-stream's 34 M-edge graph, and
+``dryrun_multichip(4)``; then the CLI runs under ``torchrun`` with and
+without ``--dist.num_parts``. ``--cards 1`` is the same run in a group of
+one.
 
 Phase 0 builds the hand-written kernels from ``gnn_tpu_torch/csrc`` with
 nvcc (one process per source, all at once) and the C++ graph core with g++,
@@ -128,7 +150,9 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -151,9 +175,10 @@ from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plai
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
 from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain
 from gnn_tpu_torch.ops.edge_agg import edge_aggregate, edge_aggregate_max
+from gnn_tpu_torch.optim import clip_by_global_norm
 from gnn_tpu_torch.train import Config, fit
 from gnn_tpu_torch.train import cli, loop
-from gnn_tpu_torch.utils.profiling import H100, Roofline, time_fn
+from gnn_tpu_torch.utils.profiling import H100, Roofline, device_kernels, kernel_of, split_by_range, time_fn, union_us
 
 N_NODES = 169_343  # ogbn-arxiv
 E_DIRECTED = 1_157_799
@@ -1362,7 +1387,8 @@ def reset_counters() -> None:
 def dist_stream_pass(stream, x_host: np.ndarray, mesh, label: str) -> tuple:
     """One ``spmm_host`` pass with every launch counter at 0 just before and
     read just after: (the result, the counters, the pass's stats, its wall
-    seconds to a sync). Fails unless K1 ran once a chunk and nothing else."""
+    seconds to a sync). Fails unless K1 ran once a chunk of this process's
+    parts and nothing else."""
     reset_counters()
     stats = {}
     torch.cuda.synchronize()
@@ -1371,8 +1397,10 @@ def dist_stream_pass(stream, x_host: np.ndarray, mesh, label: str) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
-    if launches != k1_only(stats["chunks"]) or stats["chunks"] != stream.num_chunks:
-        raise AssertionError(f"{label}: launches {launches} over {stream.num_chunks} chunks, not one K1 a chunk")
+    local = range(mesh.first_part, mesh.first_part + mesh.num_local_parts)
+    chunks = max(stream.streams[p].num_chunks for p in local)
+    if launches != k1_only(stats["chunks"]) or stats["chunks"] != chunks:
+        raise AssertionError(f"{label}: launches {launches} over {chunks} chunks, not one K1 a chunk")
     return out, launches, stats, wall
 
 
@@ -2218,5 +2246,843 @@ def main() -> int:
     return 0
 
 
+# -- phase 4-cards: the group path across cards, one process a card ----------
+
+# The launcher's limit on the card processes, and a collective's: a rank that
+# waits for good ends the run, named with its phase
+CARDS_LIMIT_S, NCCL_TIMEOUT_S = 900.0, 300.0
+CARDS_TP_MESH = (2, 2)  # model groups {0, 1}, {2, 3}; data groups {0, 2}, {1, 3}
+CARDS_TRACE_STEPS = 5
+CARDS_CLI_LIMIT_S = 300.0
+
+
+def nvidia_smi_topology(n_cards: int) -> str:
+    """How the cards are linked: ``nvidia-smi topo -m`` and ``nvidia-smi
+    nvlink --status`` as far as the machine lets them run (each one's exit
+    code beside what it printed), and which pairs of cards torch can give
+    each other peer access."""
+    lines = []
+    for cmd in (["nvidia-smi", "topo", "-m"], ["nvidia-smi", "nvlink", "--status"]):
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        lines.append(f"{' '.join(cmd)} (exit {out.returncode}):\n{(out.stdout + out.stderr).rstrip()}")
+    peers = [[i == j or torch.cuda.can_device_access_peer(i, j) for j in range(n_cards)] for i in range(n_cards)]
+    lines.append(f"peer access between the cards (torch.cuda.can_device_access_peer): {peers}")
+    return "\n".join(lines)
+
+
+class Checks:
+    """The checks of a card process: each failure is logged and kept, so that
+    the processes stay in step through their collectives and the run still
+    reports every number; the process fails at its end if any check did."""
+
+    def __init__(self, label: str):
+        self.label, self.failed = label, []
+
+    def hold(self, what: str, fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            log(f"{self.label} FAILED {what}: {e}")
+            self.failed.append(f"{what}: {e}")
+            return None
+
+
+def gather_rows(row) -> list:
+    """Every process's ``row``, in rank order."""
+    import torch.distributed as tdist
+
+    rows = [None] * tdist.get_world_size()
+    tdist.all_gather_object(rows, row)
+    return rows
+
+
+def same_bits_on_every_card(tensors, label: str) -> None:
+    import torch.distributed as tdist
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    gathered = [torch.empty_like(flat) for _ in range(tdist.get_world_size())]
+    tdist.all_gather(gathered, flat)
+    if not all(torch.equal(g, gathered[0]) for g in gathered):
+        raise AssertionError(f"{label}: the final parameters or buffers differ between the cards")
+
+
+def curves_close(label: str, got: list, want: list, rtol: float, against: str, atol: float = 0.0) -> float:
+    """The loss curve ``got`` within ``rtol`` (and ``atol``) of ``want``,
+    step by step; the largest relative difference."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want)) if got and len(got) == len(want) else math.inf
+    if len(got) != len(want) or not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(
+            f"{label}: losses {got}, {against} {want} (rtol {rtol}, atol {atol}, max rel diff {worst:.2e})")
+    return worst
+
+
+def curve_gaps(got: list, want: list) -> dict:
+    """The largest absolute and relative step-by-step difference of two curves."""
+    return dict(max_abs_diff=max(abs(a - b) for a, b in zip(got, want)),
+                max_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(got, want)))
+
+
+def cards_dp_config() -> Config:
+    """Phase 2-dp-sampled's GraphSAGE with dropout 0: a card process draws
+    its dropout masks from a stream of its own, so only without dropout is
+    its curve the one-process curve."""
+    cfg = arxiv_sampled_config("sage", SAGE_FANOUTS, 20)
+    cfg.dist.num_parts, cfg.model.dropout = DIST_PARTS, 0.0
+    return cfg
+
+
+CARDS_FITS = (
+    ("gcn", arxiv_gcn_config, k1_only(45)),
+    ("gat", arxiv_gat_config, {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "blocked_matvec": 0}),
+    ("encoder_gcn", encoder_sgd_config, k1_only(30)),
+)
+
+
+def cards_references(dev, edges: np.ndarray) -> dict:
+    """On one card, before the card processes start: the in-process 4-part
+    ``fit`` of phase 2-dist (GCN, GAT, EncoderGCN under SGD) and the
+    single-device ``fit`` of the same configs, their loss curves, step ms and
+    launches, and the data-parallel sampled GraphSAGE of phase 2-dp-sampled
+    in one process."""
+    data = arxiv_scale_data(edges)
+    refs = {}
+    for name, make, want in CARDS_FITS:
+        single = dist_config(make())
+        single.dist.num_parts = 0
+        _, _, hist = fit(single, data, device=dev, verbose=False)
+        run = train_phase(f"phase4-cards reference {name} 4 parts in one process", dist_config(make(), halo="alltoall"),
+                          data, dev, want)
+        refs[name] = dict(
+            single=[h["loss"] for h in hist], single_step_ms=float(np.median([h["step_ms"] for h in hist][1:])),
+            parts=[h["loss"] for h in run[3]], parts_step_ms=run[2], launches=run[0],
+        )
+    del data
+    cfg = cards_dp_config()
+    steps, L = cfg.train.epochs, cfg.model.num_layers
+    run = train_phase("phase4-cards reference dp-sampled 4 parts in one process", cfg,
+                      arxiv_scale_data(edges, signal=1.0), dev,
+                      k1_only(steps * DIST_PARTS * (2 * L - 1) + steps * L), falling=True)
+    refs["sage-dp-sampled"] = dict(parts=[h["loss"] for h in run[3]], parts_step_ms=run[2], launches=run[0])
+    orders = summation_order_curves(cfg, arxiv_scale_data(edges, signal=1.0), dev)
+    refs["sage-dp-sampled"]["orders"] = orders
+    forward, backward = orders.values()
+    log("phase4-cards summation-order witness: " + json.dumps(dict(
+        orders=orders, in_process_fit=refs["sage-dp-sampled"]["parts"], two_orders=curve_gaps(forward, backward),
+        first_order_against_fit=curve_gaps(forward, refs["sage-dp-sampled"]["parts"]),
+    )))
+    torch.cuda.empty_cache()
+    return refs
+
+
+def summation_order_curves(cfg: Config, data: Data, dev) -> dict:
+    """The data-parallel sampled GraphSAGE of ``cfg`` trained in one process
+    with each part's gradients taken alone and then summed over the parts in
+    two orders, (0, 1, 2, 3) and (3, 2, 1, 0), as the cards' all-reduce sums
+    them in an order of its own: the loss curve of each order, keyed by it.
+    The seeds, neighbour draws and initial weights are ``fit``'s, so the two
+    curves differ only by the order of that float32 sum."""
+    t, n_parts = cfg.train, cfg.dist.num_parts
+    train_ids = np.nonzero(data.train_mask.numpy())[0]
+    curves = {}
+    for order in (tuple(range(n_parts)), tuple(reversed(range(n_parts)))):
+        model = loop.build_model(cfg, data.num_features, int(data.y.max()) + 1,
+                                 torch.Generator().manual_seed(t.seed)).to(dev)
+        model.train()
+        params = list(model.parameters())
+        opt = loop.build_optimizer(cfg, params)
+        step = loop.build_step(cfg, data, model, dev)
+        sampler = NeighborSampler(step.data, t.fanouts).to(dev)
+        losses = []
+        for _ in range(t.epochs):
+            seeds = step.rng_np.choice(train_ids, t.batch_size)
+            shares, grads = [], []
+            for gen, part in zip(step.sample_gens, np.split(seeds, n_parts)):
+                part = torch.from_numpy(part).to(dev)
+                nodes, adjs = sampler.sample(gen, part)
+                logits = model.forward_sampled(step.data.x.index_select(0, nodes), adjs, generator=step.dropout_gen)
+                shares.append(cross_entropy(logits, step.data.y.index_select(0, part)) / n_parts)
+                grads.append(torch.autograd.grad(shares[-1], params))
+            for i, p in enumerate(params):
+                p.grad = grads[order[0]][i].clone()
+                for q in order[1:]:
+                    p.grad += grads[q][i]
+            if cfg.optim.grad_clip > 0:
+                clip_by_global_norm(params, cfg.optim.grad_clip)
+            opt.step()
+            losses.append(torch.stack(shares).sum().item())
+        curves[",".join(map(str, order))] = losses
+    return curves
+
+
+def cards_devices(rank: int, world: int, checks: Checks) -> list:
+    """Each process's card: its index, PCI bus id and name; four distinct
+    cards, each process on the card of its rank."""
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    bus = (f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:{props.pci_device_id:02x}"
+           if hasattr(props, "pci_bus_id") else str(getattr(props, "uuid", "unknown")))
+    rows = gather_rows(dict(rank=rank, current_device=torch.cuda.current_device(), pci_bus_id=bus, name=props.name,
+                            torch_threads=torch.get_num_threads(), host_cores=os.cpu_count()))
+
+    def distinct():
+        if len({r["pci_bus_id"] for r in rows}) != world or any(r["current_device"] != r["rank"] for r in rows):
+            raise AssertionError(f"the processes do not hold {world} distinct cards, one a rank: {rows}")
+
+    checks.hold("one card a process", distinct)
+    log(json.dumps({"phase4-cards devices": rows}))
+    return rows
+
+
+def cards_spmm(ei, w, adj, dev, checks: Checks) -> dict:
+    """``spmm_dist`` at F=256 over the arxiv-scale graph in 4 parts, one part
+    (or 4 / W) a card, in each halo mode: forward and dx against this card's
+    rows of single-device K1 (``compare``, phase 1-dist's tolerance), a
+    bitwise repeat, ms a call, the exchange's ms beside one bare collective
+    of the same bytes (its measured rate across the cards) and the launches
+    a call; then ``gather_src_dist`` + ``edge_reduce_by_dst`` at the GAT
+    width 8*32+8 and the backward (the VJP returns the remote partials to
+    their owners), against single-device K1 with a null weight."""
+    import torch.distributed as tdist
+
+    from gnn_tpu_torch.parallel import make_mesh, partition_graph, spmm_dist
+    from gnn_tpu_torch.parallel.halo import _aggregate, _all_gather, _exchange
+
+    mesh = make_mesh(axes=("data",), devices=[dev] * (DIST_PARTS // tdist.get_world_size()))
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(N_NODES, DIST_F, generator=gen).to(dev)
+    g = torch.randn(N_NODES, DIST_F, generator=gen).to(dev)
+    want = csr_spmm(adj.row_ptr, adj.src, adj.weight, x)
+    want_dx = csr_spmm(adj.t_row_ptr, adj.t_col, adj.t_weight, g)
+    rows = {}
+    for halo in ("allgather", "alltoall", "overlap"):
+        label = f"phase4-cards spmm_dist {halo}"
+        t0 = time.perf_counter()
+        dist = partition_graph(ei, w, num_nodes=N_NODES, mesh=mesh, halo=halo)
+        part_s = time.perf_counter() - t0
+        x_sh, g_sh = dist.shard_nodes(x), dist.shard_nodes(g)
+        out, fwd_launches = counted(lambda: spmm_dist(dist, x_sh))
+        dx, dx_launches = counted(lambda: _aggregate(dist, g_sh, transpose=True))
+        err = checks.hold(f"{halo} fwd", compare, f"{label} fwd", out, dist.shard_nodes(want), torch.float32)
+        err_dx = checks.hold(f"{halo} dx", compare, f"{label} dx", dx, dist.shard_nodes(want_dx), torch.float32)
+        checks.hold(f"{halo} fwd repeat", check_repeat, f"{label} fwd", lambda: spmm_dist(dist, x_sh), (), out)
+        checks.hold(f"{halo} dx repeat", check_repeat, f"{label} dx", lambda: _aggregate(dist, g_sh, transpose=True),
+                    (), dx)
+        row = dict(
+            partition_s=part_s, n_max=dist.n_max, h_max=dist.h_max, local_parts=dist.num_local_parts,
+            max_abs_err=None if err is None or err_dx is None else max(err, err_dx),
+            fwd_ms=time_ms(lambda: spmm_dist(dist, x_sh)),
+            dx_ms=time_ms(lambda: _aggregate(dist, g_sh, transpose=True)),
+            single_fwd_ms=time_ms(lambda: csr_spmm(adj.row_ptr, adj.src, adj.weight, x)),
+            launches_fwd=fwd_launches, launches_dx=dx_launches, bitwise_repeat=True,
+        )
+        if halo == "allgather":
+            sent, recv = x_sh.contiguous(), x_sh.new_empty((DIST_PARTS * dist.n_max, DIST_F))
+            row["exchange_ms"] = time_ms(lambda: _all_gather(dist, x_sh))
+            bare = lambda: tdist.all_gather_into_tensor(recv, sent, group=dist.group)
+            row["exchange_bytes"] = sent.numel() * 4  # this card's rows, to every other card
+        else:
+            sent = x_sh.new_empty((dist.exchange_idx.numel(), DIST_F))
+            recv = torch.empty_like(sent)
+            row["exchange_ms"] = time_ms(lambda: _exchange(dist, x_sh, dist.exchange_idx))
+            bare = lambda: tdist.all_to_all_single(recv, sent, group=dist.group)
+            row["exchange_bytes"] = sent.numel() * 4  # this card's share for its own parts included
+        row["bare_collective_ms"] = time_ms(bare)
+        remote = row["exchange_bytes"] * (1 - 1 / tdist.get_world_size()) if halo != "allgather" else \
+            row["exchange_bytes"] * (tdist.get_world_size() - 1)
+        row["bytes_to_other_cards"] = remote
+        row["bare_collective_gb_per_s"] = remote / row["bare_collective_ms"] / 1e6
+        row["exchange_over_bare"] = row["exchange_ms"] / row["bare_collective_ms"]
+        rows[halo] = row
+        if halo == "alltoall":
+            rows["gat_width"] = cards_edge_ops(dist, adj, dev, checks)
+        del dist, out, dx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def cards_edge_ops(dist, adj, dev, checks: Checks) -> dict:
+    """gather_src_dist then edge_reduce_by_dst at [E, 8*32+8] and their
+    backward, against single-device K1 with a null weight; the VJP (K1
+    over the incidence CSR, the partials back to their owners, K1 over the
+    send CSR) bitwise on a repeat."""
+    from gnn_tpu_torch.parallel import edge_reduce_by_dst, gather_src_dist
+    from gnn_tpu_torch.parallel.halo import _GatherSrc
+
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(N_NODES, DIST_GAT_WIDTH, generator=gen).to(dev)
+    g = torch.randn(N_NODES, DIST_GAT_WIDTH, generator=gen).to(dev)
+    x_sh = dist.shard_nodes(x).requires_grad_()
+    out, fwd_launches = counted(lambda: edge_reduce_by_dst(dist, gather_src_dist(dist, x_sh)))
+    _, bwd_launches = counted(lambda: out.backward(dist.shard_nodes(g)))
+    label = "phase4-cards edge ops"
+    err = checks.hold("edge ops fwd", compare, f"{label} fwd", out.detach(),
+                      dist.shard_nodes(csr_spmm(adj.row_ptr, adj.src, None, x)), torch.float32)
+    err_dx = checks.hold("edge ops dx", compare, f"{label} dx", x_sh.grad,
+                         dist.shard_nodes(csr_spmm(adj.t_row_ptr, adj.t_col, None, g)), torch.float32)
+    edges = gather_src_dist(dist, x_sh.detach())
+    ge = torch.randn(edges.shape, generator=gen).to(dev)
+    vjp = lambda: _GatherSrc.backward(type("ctx", (), {"dist": dist})(), ge)[0]
+    checks.hold("gather_src_dist VJP repeat", check_repeat, f"{label} gather_src_dist VJP", vjp, (), vjp())
+
+    def launches():
+        if fwd_launches != (0, 1) or bwd_launches != (2, 0):
+            raise AssertionError(f"{label}: launched {fwd_launches} / {bwd_launches}, not (0, 1) / (2, 0)")
+
+    checks.hold("edge ops launches", launches)
+    return dict(max_abs_err=None if err is None or err_dx is None else max(err, err_dx), edge_rows=edges.shape[0],
+                gather_vjp_ms=time_ms(vjp), launches_fwd=fwd_launches, launches_bwd=bwd_launches)
+
+
+def cards_fits(data: Data, refs: dict, dev, checks: Checks) -> dict:
+    """``fit`` on 4 parts across the cards (dropout 0, 5 epochs): the GCN
+    (halo 'alltoall'), the GAT and EncoderGCN (SGD), with the launch
+    counters at 0 just before each; each loss curve against the in-process
+    4-part curve (rtol 1e-5) and the single-device one (rtol 1e-4), the
+    final parameters and buffers equal on every card, the median step ms
+    and the all-reduces an epoch."""
+    rows = {}
+    for name, make, _ in CARDS_FITS:
+        label = f"phase4-cards fit {name}"
+        ref = refs[name]
+        got = {}
+        keep = lambda model, state, history: got.setdefault("tensors", final_tensors(model, state))
+        calls, restore = counted_all_reduce()
+        try:
+            run = train_phase(label, dist_config(make(), halo="alltoall"), data, dev, ref["launches"], keep)
+        finally:
+            restore()
+        losses, epochs = [h["loss"] for h in run[3]], make().train.epochs
+        rel_parts = checks.hold(f"{name} against 4 parts in one process", curves_close, label, losses, ref["parts"],
+                                1e-5, "in one process on 4 parts")
+        rel_single = checks.hold(f"{name} against one device", curves_close, label, losses, ref["single"], 1e-4,
+                                 "on one device")
+        checks.hold(f"{name} parameters on every card", same_bits_on_every_card, [t.to(dev) for t in got["tensors"]],
+                    label)
+        torch.cuda.synchronize()
+        rows[name] = dict(
+            losses=losses, max_rel_diff_4_parts_one_process=rel_parts, max_rel_diff_one_device=rel_single,
+            median_step_ms=run[2], in_process_4_parts_step_ms=ref["parts_step_ms"],
+            single_device_step_ms=ref["single_step_ms"], all_reduces_per_epoch=len(calls) / epochs,
+            all_reduce_ms_per_epoch=sum(s.elapsed_time(e) for _, s, e in calls) / epochs,
+            launches=run[0], launches_per_step=run[1],
+        )
+    return rows
+
+
+def cards_trace(data: Data, dev) -> dict:
+    """The GCN step of the 4-part ``fit`` (forward, backward, the gradients'
+    all-reduce, Adam; dropout 0) on every card: 3 warm-up steps, 10 timed
+    ones (synced, host clock), then ``CARDS_TRACE_STEPS`` traced with
+    ``torch.profiler`` on every card: device busy ms a step, the idle share
+    of the traced window and of the untraced step, and the device ms a step
+    inside the ``halo.exchange`` ranges, of NCCL's all-reduce kernels, of
+    its send / receive kernels (the exchange's ``all_to_all_single``), of K1
+    and of the device-to-device copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gnn_tpu_torch.parallel import multihost
+
+    cfg = dist_config(arxiv_gcn_config(), halo="alltoall")
+    model = loop.build_model(cfg, IN_FEATURES, NUM_CLASSES, torch.Generator().manual_seed(0)).to(dev)
+    model.train()
+    params = list(model.parameters())
+    opt = loop.build_optimizer(cfg, params)
+    step_of = loop.build_step(cfg, data, model, dev)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        step_of.loss().backward()
+        multihost.all_reduce_gradients(params, step_of.group)
+        opt.step()
+
+    def steps(n: int) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    steps(3)
+    untraced_ms = steps(10)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window_ms = steps(CARDS_TRACE_STEPS)
+    events = prof.events()
+    kernels = device_kernels(events)
+    if not kernels:
+        raise AssertionError("phase4-cards trace: the trace holds no device activity")
+    busy = union_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3 / CARDS_TRACE_STEPS
+    split = split_by_range(events, kernels, CARDS_TRACE_STEPS, {"halo.exchange": lambda name: "halo.exchange"})
+    exchange = split.get("halo.exchange", [0.0, 0.0]) if split else [None, None]
+    ms = lambda keep: sum(e.time_range.end - e.time_range.start for e in kernels if keep(e)) / 1e3 / CARDS_TRACE_STEPS
+    row = dict(
+        steps=CARDS_TRACE_STEPS, untraced_ms_per_step=untraced_ms, window_ms_per_step=window_ms,
+        busy_ms_per_step=busy, idle_share=1 - busy / window_ms, idle_share_untraced=1 - busy / untraced_ms,
+        halo_exchange_ms=exchange[0], halo_exchange_launches_per_step=exchange[1],
+        nccl_all_reduce_ms=ms(lambda e: "nccl" in e.name.lower() and "allreduce" in e.name.lower()),
+        nccl_send_recv_ms=ms(lambda e: "nccl" in e.name.lower() and "sendrecv" in e.name.lower()),
+        k1_ms=ms(lambda e: (kernel_of(e.name) or "").startswith("K1")),
+        copies_ms=ms(lambda e: "memcpy" in e.name.lower()),
+    )
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / CARDS_TRACE_STEPS
+    row["top_kernels"] = [(n[:90], t) for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]
+    return row
+
+
+def cards_dp_sampled(dev, edges: np.ndarray, refs: dict, world: int, checks: Checks) -> dict:
+    """Data-parallel sampled GraphSAGE 3 x 256 of phase 2-dp-sampled
+    (dropout 0), 4 parts of 256 seeds over the cards: the loss curve against
+    the in-process run step by step (rtol 1e-5, atol 2e-5), the parameters
+    equal on every card, K1 per card, and the curve's gaps to the in-process
+    curves whose parts' gradients were summed in two orders of their own."""
+    cfg = cards_dp_config()
+    steps, L = cfg.train.epochs, cfg.model.num_layers
+    want = k1_only(steps * (DIST_PARTS // world) * (2 * L - 1) + steps * L)
+    got = {}
+    keep = lambda model, state, history: got.setdefault("tensors", final_tensors(model, state))
+    calls, restore = counted_all_reduce()
+    try:
+        run = train_phase("phase4-cards dp-sampled", cfg, arxiv_scale_data(edges, signal=1.0), dev, want, keep,
+                          falling=True)
+    finally:
+        restore()
+    ref = refs["sage-dp-sampled"]
+    losses = [h["loss"] for h in run[3]]
+    # the loss falls to 3e-3 in 20 Adam steps; the gradients summed by NCCL
+    # in another order than in one process move its tail by up to 7.5e-6
+    # (measured on four H100s), as another order of the in-process sum does
+    # (ref["orders"]): atol 2e-5 holds that tail, rtol 1e-5 the rest
+    rel = checks.hold("dp-sampled against 4 parts in one process", curves_close, "phase4-cards dp-sampled", losses,
+                      ref["parts"], 1e-5, "in one process on 4 parts", 2e-5)
+    checks.hold("dp-sampled parameters on every card", same_bits_on_every_card, [t.to(dev) for t in got["tensors"]],
+                "phase4-cards dp-sampled")
+    torch.cuda.synchronize()
+    return dict(losses=losses, max_rel_diff_4_parts_one_process=rel,
+                against_in_process=curve_gaps(losses, ref["parts"]),
+                against_summation_orders={order: curve_gaps(losses, curve) for order, curve in ref["orders"].items()},
+                first_step_rel_diff=abs(losses[0] - ref["parts"][0]) / abs(ref["parts"][0]), median_step_ms=run[2],
+                in_process_step_ms=ref["parts_step_ms"], launches=run[0], all_reduces_per_step=len(calls) / steps)
+
+
+def cards_tp(data: Data, dev, world: int, checks: Checks) -> dict:
+    """The GCN 3 x 256 of phase 2-tp (dropout 0) on a (2, 2) (data, model)
+    mesh over the cards: every Linear whose out-features divide 2 sharded
+    over a model group, the halo over a data group. The first step's loss
+    and this card's gradients, summed over the data group, against one
+    device's on this card (loss within 1e-5, gradients at rtol 2e-4 / atol
+    1e-5); then 6 Adam steps, synced, K1 6 a step, with the all-reduces a
+    step (the model groups' ``dx`` sums included)."""
+    import torch.distributed as tdist
+
+    from gnn_tpu_torch.optim import Adam
+    from gnn_tpu_torch.parallel import ShardedLinear, make_mesh, multihost, shard_model, shard_node_array
+
+    rank = tdist.get_rank()
+    cfg = dist_config(arxiv_gcn_config())
+    mesh = make_mesh(CARDS_TP_MESH, ("data", "model"), devices=[dev] * (int(np.prod(CARDS_TP_MESH)) // world))
+    group = mesh.data_group
+    layout = dict(data_group=tdist.get_process_group_ranks(group),
+                  model_group=None if mesh.model_group is None else tdist.get_process_group_ranks(mesh.model_group),
+                  shards=list(mesh.local_shards), first_part=mesh.first_part, parts=mesh.num_local_parts)
+    dist = data.to_dist_graph(mesh=mesh, halo="alltoall")
+    adj = data.to_adjacency(norm="sym").to(dev)
+    model = loop.build_model(cfg, IN_FEATURES, NUM_CLASSES, torch.Generator().manual_seed(0)).to(dev)
+    tp = shard_model(copy.deepcopy(model), mesh)
+    x, y, train = data.x.to(dev), data.y.to(dev), data.train_mask.to(dev)
+    x_sh, y_sh, m_sh = shard_node_array(dist, data.x, mesh), dist.shard_nodes(y), dist.shard_nodes(train, fill=False)
+    loss = cross_entropy(model(x, adj), y, train)
+    loss.backward()
+    tp_loss = cross_entropy(tp(x_sh, dist), y_sh, m_sh, group=group)
+    tp_loss.backward()
+    multihost.all_reduce_gradients(tp.parameters(), group)
+    tp_value = tp_loss.detach().clone()
+    tdist.all_reduce(tp_value, group=group)
+    diff = abs(tp_value.item() - loss.item())
+    worst = 0.0
+
+    def held():
+        nonlocal worst
+        if diff >= 1e-5:
+            raise AssertionError(f"phase4-cards tp: loss {tp_value.item()} on the cards, {loss.item()} on one device")
+        want = dict(model.named_parameters())
+        for name, module in tp.named_modules():
+            if isinstance(module, ShardedLinear):
+                rows = module.out_features // CARDS_TP_MESH[1]
+                for m, shard in zip(module.shard_index, module.shards):
+                    ref = want[f"{name}.weight"].grad[m * rows:(m + 1) * rows]
+                    if not torch.allclose(shard.grad, ref, rtol=2e-4, atol=1e-5):
+                        raise AssertionError(f"phase4-cards tp: {name} shard {m}'s gradient beyond rtol 2e-4")
+                    worst = max(worst, (shard.grad - ref).abs().max().item())
+        for name, p in tp.named_parameters():
+            if ".shards." not in name:
+                if not torch.allclose(p.grad, want[name].grad, rtol=2e-4, atol=1e-5):
+                    raise AssertionError(f"phase4-cards tp: gradient {name} beyond rtol 2e-4")
+                worst = max(worst, (p.grad - want[name].grad).abs().max().item())
+
+    checks.hold("tensor parallel against one device", held)
+    opt = Adam(tp.parameters(), lr=cfg.optim.lr)
+    reset_counters()
+    step_ms, losses = [], []
+    calls, restore = counted_all_reduce()
+    try:
+        for _ in range(6):
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            step_loss = cross_entropy(tp(x_sh, dist), y_sh, m_sh, group=group)
+            step_loss.backward()
+            multihost.all_reduce_gradients(tp.parameters(), group)
+            opt.step()
+            step_loss = step_loss.detach().clone()
+            tdist.all_reduce(step_loss, group=group)
+            losses.append(step_loss.item())  # syncs the device
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        restore()
+    per_step = {k: v / len(step_ms) for k, v in read_counters().items()}
+
+    def steps_held():
+        if per_step != k1_only(6) or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"phase4-cards tp: launches a step {per_step} (K1 6 expected), losses {losses}")
+
+    checks.hold("tensor parallel steps", steps_held)
+    return dict(mesh=list(CARDS_TP_MESH), layout=layout, loss=tp_value.item(), single_device_loss=loss.item(),
+                loss_diff=diff, max_abs_grad_err=worst, step_ms=step_ms, median_step_ms=float(np.median(step_ms[1:])),
+                losses=losses, k1_per_step=per_step["csr_spmm"], all_reduces_per_step=len(calls) / len(step_ms))
+
+
+def cards_resume(data: Data, workdir: str, dev, checks: Checks) -> dict:
+    """The GCN 3 x 256 on 4 parts across the cards, dropout 0.5 (every
+    card's dropout stream counts), 5 epochs uninterrupted; then stopped after
+    epoch 3 with a checkpoint every epoch (rank 0 writes, every card reads
+    after the barrier) and resumed to epoch 5: the losses, accuracies and
+    final parameters bit for bit those of the uninterrupted run."""
+    cfg = arxiv_gcn_config()
+    cfg.dist.num_parts, cfg.dist.halo = DIST_PARTS, "alltoall"
+    make_model = lambda: loop.build_model(cfg, IN_FEATURES, NUM_CLASSES, torch.Generator().manual_seed(cfg.train.seed))
+    model_a, _, whole = fit(cfg, data, model=make_model(), device=dev, verbose=False)
+    stop = copy.deepcopy(cfg)
+    stop.train.checkpoint_dir, stop.train.checkpoint_every, stop.train.epochs = f"{workdir}/ckpt", 1, 3
+    _, _, head = fit(stop, data, model=make_model(), device=dev, verbose=False)
+    stop.train.epochs = cfg.train.epochs
+    model_b, _, tail = fit(stop, data, model=make_model(), device=dev, resume=True, verbose=False)
+    keys = ("loss", "train_acc", "val_acc", "test_acc")
+
+    def held():
+        if len(head) + len(tail) != len(whole) or any(
+            [a[k] for k in keys] != [b[k] for k in keys] for a, b in zip(head + tail, whole)
+        ):
+            raise AssertionError(f"phase4-cards resume: {head + tail} against the uninterrupted {whole}")
+        if not all(torch.equal(a, b) for a, b in zip(model_a.parameters(), model_b.parameters())):
+            raise AssertionError("phase4-cards resume: the resumed parameters differ from the uninterrupted run's")
+
+    failed = len(checks.failed)
+    checks.hold("resume bit for bit", held)
+    checks.hold("resumed parameters on every card", same_bits_on_every_card, list(model_b.parameters()),
+                "phase4-cards resume")
+    return dict(losses=[h["loss"] for h in whole], resumed_losses=[h["loss"] for h in head + tail],
+                stopped_after=3, bitwise=len(checks.failed) == failed)
+
+
+def cards_stream(ei, w, adj, workdir: str, dev, checks: Checks) -> dict:
+    """``DistEdgeStream`` in the group: each card streams its own part's
+    chunks from its own host copy of the edges and of ``x_host``. The
+    arxiv-scale graph in chunks of 2^18 edges at F=128 against this card's
+    rows of resident K1 (rtol 1e-5, atol 1e-5), bitwise on a repeat; then
+    phase 2-dist-stream's ~34 M-edge graph with a 1 GB ``x_host`` (written
+    once by the launcher, read here into this process's memory), chunks of
+    ``DIST_STREAM_CHUNK``: a warm-up pass and two timed ones; the pass's
+    edges/s over the slowest card's wall time, and per card the host's
+    unique / gather / pack ms a chunk and the copies' GB/s beside a pinned
+    copy's."""
+    import torch.distributed as tdist
+
+    from gnn_tpu_torch.parallel import make_mesh, multihost
+
+    world = tdist.get_world_size()
+    mesh = make_mesh(axes=("data",), devices=[dev] * (DIST_PARTS // world))
+    x_host = np.random.default_rng(11).standard_normal((N_NODES, STREAM_F), dtype=np.float32)
+    stream = DistEdgeStream(ei, w, num_nodes=N_NODES, num_parts=DIST_PARTS, chunk_edges=1 << 18)
+    label = "phase4-cards stream arxiv-scale"
+    out, _, stats, _ = dist_stream_pass(stream, x_host, mesh, label)
+    want = csr_spmm(adj.row_ptr, adj.src, adj.weight, torch.from_numpy(x_host).to(dev))
+    pad = torch.zeros(DIST_PARTS * stream.n_max - N_NODES, STREAM_F, device=dev)
+    lo = mesh.first_part * stream.n_max
+    want = torch.cat([want, pad])[lo:lo + mesh.num_local_parts * stream.n_max]
+
+    def close():
+        if out.shape != want.shape or not torch.allclose(out, want, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{label}: output {tuple(out.shape)}, max abs err "
+                                 f"{(out - want).abs().max().item() if out.shape == want.shape else None} outside "
+                                 "rtol 1e-5, atol 1e-5 against resident K1")
+
+    checks.hold("stream arxiv-scale against resident K1", close)
+    checks.hold("stream arxiv-scale repeat", check_repeat, label, lambda: stream.spmm_host(x_host, mesh), (), out)
+    arxiv = dict(chunks=stats["chunks"], max_abs_err=(out - want).abs().max().item() if out.shape == want.shape else None)
+    del out, want
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ei_t, w_t = np.load(f"{workdir}/stream_ei.npy"), np.load(f"{workdir}/stream_w.npy")
+    x_host = np.load(f"{workdir}/stream_x.npy")
+    n = x_host.shape[0]
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = DistEdgeStream(ei_t, w_t, num_nodes=n, num_parts=DIST_PARTS, chunk_edges=DIST_STREAM_CHUNK)
+    build_s = time.perf_counter() - t0
+    label = "phase4-cards stream timed"
+    dist_stream_pass(stream, x_host, mesh, label)  # the warm-up: the pinned buffers grow
+    walls, stats = [], None
+    for _ in range(2):
+        multihost.barrier(dev)  # the cards start each pass together
+        out, _, stats, wall = dist_stream_pass(stream, x_host, mesh, label)
+        walls.append(wall)
+    finite = bool(torch.isfinite(out).all())
+
+    def shaped():
+        if not finite or tuple(out.shape) != (mesh.num_local_parts * stream.n_max, STREAM_F):
+            raise AssertionError(f"{label}: output {tuple(out.shape)}, finite {finite}")
+
+    checks.hold("stream timed output", shaped)
+    chunks = stats["chunks"]
+    pinned_ms = pinned_copy_ms(stats["max_chunk_bytes"], dev)
+    copy_ms = float(np.sum(stats["copy_ms"]))
+    local_edges = sum(stream.streams[p].num_edges for p in range(mesh.first_part, mesh.first_part + mesh.num_local_parts))
+    row = dict(
+        nodes=n, edges=stream.num_edges, local_edges=local_edges, chunk_edges=stream.chunk_edges, chunks=chunks,
+        load_s=load_s, build_s=build_s, pass_ms=[t * 1e3 for t in walls],
+        unique_ms_per_chunk=stats["unique_ms"] / chunks, gather_ms_per_chunk=stats["gather_ms"] / chunks,
+        pack_ms_per_chunk=stats["pack_ms"] / chunks, bytes_shipped=stats["h2d_bytes"],
+        copy_gb_per_s=stats["h2d_bytes"] / copy_ms / 1e6,
+        pinned_copy_gb_per_s=stats["max_chunk_bytes"] / pinned_ms / 1e6,
+        k1_ms_per_chunk=float(np.median(stats["k1_ms"])), k1_launches=chunks,
+    )
+    del out, x_host, ei_t, w_t, stream
+    torch.cuda.empty_cache()
+    return dict(arxiv=arxiv, timed=row)
+
+
+class Phases:
+    """Names this process's current phase in ``{workdir}/rank{rank}.phase``,
+    where the launcher reads it if the process hangs."""
+
+    def __init__(self, workdir: str, rank: int):
+        self.path, self.rank = f"{workdir}/rank{rank}.phase", rank
+
+    def enter(self, name: str) -> None:
+        with open(self.path, "w") as f:
+            f.write(name)
+        log(f"phase4-cards rank {self.rank}: {name}")
+
+
+def cards_worker(rank: int, world: int, address: str, refs: dict, workdir: str) -> None:
+    """One card process: joins the NCCL group on card ``rank`` and runs
+    every sub-phase of phase 4-cards in step with the others; rank 0 prints
+    the rows (each gathered from every card), the others write their lines
+    to ``{workdir}/rank{rank}.log``. Raises at the end if a check failed."""
+    import torch.distributed as tdist
+
+    from gnn_tpu_torch.entry import dryrun_multichip
+    from gnn_tpu_torch.parallel import multihost
+
+    if rank:
+        sys.stdout = open(f"{workdir}/rank{rank}.log", "w", buffering=1)
+    phases, checks = Phases(workdir, rank), Checks(f"phase4-cards rank {rank}")
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))  # the host's cores, shared
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank)
+    phases.enter("init")
+    multihost.initialize(address, world, rank, device=dev, timeout=NCCL_TIMEOUT_S)
+    phases.enter("devices")
+    cards_devices(rank, world, checks)
+
+    phases.enter("prep")
+    t0 = time.perf_counter()
+    edges = arxiv_scale_edges()
+    ei, w = gcn_norm(edges, num_nodes=N_NODES, self_loops=True)
+    adj = build_adjacency(ei, w, num_nodes=N_NODES).to(dev)
+    data = arxiv_scale_data(edges)
+    prep_s = gather_rows(time.perf_counter() - t0)
+    log(json.dumps({"phase4-cards prep_s by rank": prep_s}))
+
+    phases.enter("spmm_dist")
+    spmm = gather_rows(cards_spmm(ei, w, adj, dev, checks))
+    log(json.dumps({"phase4-cards spmm_dist": spmm}))
+
+    phases.enter("fit")
+    fits = gather_rows(cards_fits(data, refs, dev, checks))
+    E = adj.num_edges
+    gcn = fits[0]["gcn"]
+    scaling = dict(edges=E, cards=world, step_ms=gcn["median_step_ms"],
+                   edges_per_s=E / gcn["median_step_ms"] * 1e3,
+                   one_card_step_ms=gcn["single_device_step_ms"],
+                   one_card_edges_per_s=E / gcn["single_device_step_ms"] * 1e3)
+    scaling["speedup"] = scaling["edges_per_s"] / scaling["one_card_edges_per_s"]
+    scaling["scaling_efficiency"] = scaling["speedup"] / world
+    log(json.dumps({"phase4-cards fit": fits}))
+    log(json.dumps({"phase4-cards gcn scaling": scaling}))
+
+    phases.enter("trace")
+    log(json.dumps({"phase4-cards trace": gather_rows(cards_trace(data, dev))}))
+
+    phases.enter("dp-sampled")
+    log(json.dumps({"phase4-cards dp-sampled": gather_rows(cards_dp_sampled(dev, edges, refs, world, checks))}))
+
+    phases.enter("tensor parallel")
+    log(json.dumps({"phase4-cards tp": gather_rows(cards_tp(data, dev, world, checks))}))
+
+    phases.enter("resume")
+    log(json.dumps({"phase4-cards resume": gather_rows(cards_resume(data, workdir, dev, checks))}))
+    del data, adj
+    torch.cuda.empty_cache()
+
+    phases.enter("DistEdgeStream")
+    adj = build_adjacency(ei, w, num_nodes=N_NODES).to(dev)
+    stream = gather_rows(cards_stream(ei, w, adj, workdir, dev, checks))
+    timed = [s["timed"] for s in stream]
+    passes = [max(t["pass_ms"][i] for t in timed) for i in range(len(timed[0]["pass_ms"]))]  # the slowest card's
+    log(json.dumps({"phase4-cards stream": stream}))
+    log(json.dumps({"phase4-cards stream pass": dict(
+        edges=timed[0]["edges"], pass_ms=passes, edges_per_s=timed[0]["edges"] / float(np.median(passes)) * 1e3)}))
+    del adj
+
+    phases.enter("dryrun_multichip")
+    t0 = time.perf_counter()
+    dryrun_multichip(DIST_PARTS, device=dev)
+    log(f"phase4-cards dryrun_multichip({DIST_PARTS}) over {world} cards: ok ({time.perf_counter() - t0:.1f} s)")
+
+    phases.enter("checks")
+    failed = gather_rows(checks.failed)
+    tdist.destroy_process_group()  # on success only: after a failure the peers may be inside a collective
+    if any(failed):
+        raise AssertionError(f"phase 4-cards checks failed: {failed}")
+    phases.enter("done")
+
+
+def run_bounded(cmd: list, limit_s: float) -> subprocess.CompletedProcess:
+    """``cmd`` in a session of its own, killed with every process it started
+    if it runs longer than ``limit_s``."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{' '.join(cmd)} ran longer than {limit_s} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def cards_cli(n_cards: int, workdir: str) -> dict:
+    """The CLI under ``torchrun`` on the cards: with ``--dist.num_parts 4``
+    it trains (exit 0, one final line, printed by rank 0); without it, a
+    group of more than one process is refused (exit non-zero, the error
+    naming ``--dist.num_parts``) before its log file is written."""
+    base = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n_cards),
+            "--master-addr", "localhost", "--master-port", str(free_port()), "-m", "gnn_tpu_torch.train.cli",
+            "--dataset", "sbm", "--device", "cuda", "--train.epochs", "30"]
+    t0 = time.perf_counter()
+    run = run_bounded(base + ["--dist.num_parts", str(DIST_PARTS)], CARDS_CLI_LIMIT_S)
+    finals = [line for line in run.stdout.splitlines() if line.startswith("final:")]
+    log(f"phase4-cards torchrun cli --dist.num_parts {DIST_PARTS}: rc {run.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s; {finals}")
+    if run.returncode != 0 or len(finals) != 1:
+        raise AssertionError(f"phase4-cards cli: rc {run.returncode}, final lines {finals}; stderr tail "
+                             f"{run.stderr[-3000:]}")
+    row = dict(rc=run.returncode, final=finals[0])
+    if n_cards > 1:
+        base[base.index("--master-port") + 1] = str(free_port())
+        log_file = os.path.join(workdir, "cli_log.jsonl")
+        refused = run_bounded(base + ["--train.log_file", log_file], CARDS_CLI_LIMIT_S)
+        named = refused.stderr.count("(--dist.num_parts)")
+        wrote = os.path.exists(log_file)
+        log(f"phase4-cards torchrun cli without --dist.num_parts: rc {refused.returncode}, the refusal printed "
+            f"{named} times (torchrun stops the other processes after the first failure), log written {wrote}")
+        if refused.returncode == 0 or not named or wrote:
+            raise AssertionError(f"phase4-cards cli without --dist.num_parts: rc {refused.returncode}, "
+                                 f"{named} refusals; stderr tail {refused.stderr[-3000:]}")
+        row.update(refused_rc=refused.returncode, refusals=named, log_written=wrote)
+    return row
+
+
+def main_cards(n_cards: int) -> int:
+    """Phase 4-cards: the group path on ``n_cards`` cards, one process a
+    card (``--cards 1``: the same run in a group of one, the rehearsal on one
+    card). Builds once, computes the references on card 0, writes phase
+    2-dist-stream's graph for the card processes, spawns them with a store
+    on the local host, waits for them within ``CARDS_LIMIT_S``, then drives
+    the CLI under ``torchrun``."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py --cards needs CUDA devices; torch.cuda.is_available() is False")
+    if DIST_PARTS % n_cards:
+        raise SystemExit(f"--cards {n_cards}: the {DIST_PARTS} parts do not divide over {n_cards} cards")
+    if torch.cuda.device_count() < n_cards:
+        raise SystemExit(f"--cards {n_cards} needs {n_cards} cards, one a process; this host has "
+                         f"{torch.cuda.device_count()}")
+    phase0()
+    log(nvidia_smi_topology(n_cards))
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    edges = arxiv_scale_edges()
+    refs = cards_references(dev, edges)
+    log(f"phase4-cards references on card 0 ({time.perf_counter() - t0:.1f} s): " + json.dumps(
+        {k: {"parts": v["parts"], "single": v.get("single"), "parts_step_ms": v["parts_step_ms"],
+             "single_step_ms": v.get("single_step_ms")} for k, v in refs.items()}))
+    workdir = tempfile.mkdtemp(prefix="phase4_cards_")
+    try:
+        t0 = time.perf_counter()
+        n, e_dir = STREAM_NODES, STREAM_DIRECTED_EDGES
+        ei, _ = to_undirected(power_law(n, e_dir, alpha=0.8, seed=0), num_nodes=n)
+        ei, w = gcn_norm(ei, num_nodes=n, self_loops=True)
+        np.save(f"{workdir}/stream_ei.npy", ei)
+        np.save(f"{workdir}/stream_w.npy", w)
+        np.save(f"{workdir}/stream_x.npy", np.random.default_rng(12).standard_normal((n, STREAM_F), dtype=np.float32))
+        log(f"phase4-cards stream graph: {n} nodes, {ei.shape[1]} edges, written for the cards in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del ei, w
+        torch.cuda.empty_cache()
+        address = f"tcp://localhost:{free_port()}"
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(cards_worker, args=(n_cards, address, refs, workdir), nprocs=n_cards, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + CARDS_LIMIT_S
+        try:
+            while not ctx.join(timeout=10):
+                if time.monotonic() > deadline:
+                    phases = {}
+                    for r, p in enumerate(ctx.processes):
+                        if p.is_alive():
+                            path = f"{workdir}/rank{r}.phase"
+                            phases[r] = open(path).read() if os.path.exists(path) else "start"
+                    raise AssertionError(f"phase 4-cards: ranks {phases} (rank: phase) still running after "
+                                         f"{CARDS_LIMIT_S} s")
+        except BaseException:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            for r in range(1, n_cards):
+                path = f"{workdir}/rank{r}.log"
+                if os.path.exists(path):
+                    log(f"rank {r}'s last lines:\n" + "\n".join(open(path).read().splitlines()[-15:]))
+            raise
+        log(f"phase4-cards: {n_cards} card processes done in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"phase4-cards cli": cards_cli(n_cards, workdir)}))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(nvidia_smi())
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n_cards}}))
+    return 0
+
+
 if __name__ == "__main__":
-    raise SystemExit(main())
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of gnn_tpu_torch on the card (see the module docstring).")
+    parser.add_argument("--cards", type=int, default=0,
+                        help="run phase 4-cards on this many cards, one process a card, instead of the one-card smoke")
+    cards = parser.parse_args().cards
+    raise SystemExit(main_cards(cards) if cards else main())

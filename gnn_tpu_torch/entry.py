@@ -12,12 +12,14 @@ space where there is one; these directed edges are not degree-symmetric, so
 the ids stay, as in the JAX package), and returns the forward and its
 arguments. Its first call on the card builds the kernels (K1) from the
 repository's sources.
-:func:`dryrun_multichip` is the JAX package's multi-device dry run, whole,
-over the mesh positions of one process on the caller's device: the
-partitioned ``fit`` runs, the distributed GAT and GIN, the streamed
+:func:`dryrun_multichip` is the JAX package's multi-device dry run, whole:
+the partitioned ``fit`` runs, the distributed GAT and GIN, the streamed
 aggregation with the graph and the features on the host
 (``DistEdgeStream``) and a tensor-parallel GCN step on a (data, model)
-mesh.
+mesh. Without a process group one process holds every mesh position on
+the caller's device; in a ``torch.distributed`` group the positions are
+spread over its processes (one a process, one process a card, on four
+cards for ``n_devices=4``), the JAX dry run's own layout.
 """
 
 from __future__ import annotations
@@ -26,12 +28,14 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from gnn_tpu_torch.graphs import Data, gcn_norm
 from gnn_tpu_torch.graphs.generate import power_law, stochastic_block_model
 from gnn_tpu_torch.models import GAT, GCN, GIN
 from gnn_tpu_torch.nn.losses import cross_entropy
 from gnn_tpu_torch.optim import Adam
+from gnn_tpu_torch.parallel import multihost
 
 __all__ = ["entry", "dryrun_multichip"]
 
@@ -69,7 +73,10 @@ def entry(device="cuda"):
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
     """The JAX package's multi-device dry run (``__graft_entry__.py:51-231``)
-    over ``n_devices`` mesh positions of one process on ``device``: ``fit``
+    over ``n_devices`` mesh positions: all of them in one process on
+    ``device``, or, in a ``torch.distributed`` group of W processes (W
+    dividing ``n_devices``), ``n_devices / W`` of them on each process's
+    ``device``, every loss and gradient summed over the group. ``fit``
     of the GCN with halo 'alltoall', again with ``dist.local_blocked=8`` (the
     community order, halo 'overlap'), the flagship ``encoder_gcn``
     (mask-aware BatchNorm), a distributed GAT's loss and gradient and a
@@ -86,6 +93,21 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("dryrun_multichip(device='cuda') needs a CUDA device; none is available")
+    world = multihost.process_count()
+    if n_devices % world:
+        raise ValueError(f"dryrun_multichip({n_devices}) spreads its mesh positions over the group's {world} processes")
+    local = [device] * (n_devices // world)  # this process's mesh positions
+
+    def group_loss(loss, params, group):
+        """The loss over the group (its share summed), after the gradients
+        of ``params`` are summed over it, as ``fit`` does."""
+        if group is None:
+            return loss.item()
+        multihost.all_reduce_gradients(params, group)
+        loss = loss.detach().clone()
+        tdist.all_reduce(loss, group=group)
+        return loss.item()
+
     data = stochastic_block_model(num_nodes=16 * n_devices, num_classes=4, seed=0)
     cfg = Config()
     cfg.model.name, cfg.model.hidden, cfg.model.dropout = "gcn", 32, 0.0
@@ -97,7 +119,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         if not history or not math.isfinite(history[-1]["loss"]):
             raise AssertionError(f"dryrun_multichip: fit {overrides or 'gcn'} gave {history}")
 
-    mesh = make_mesh((n_devices,), ("data",), devices=[device] * n_devices)
+    mesh = make_mesh((n_devices,), ("data",), devices=local)
+    group = mesh.data_group if mesh.grouped else None
     dist = data.to_dist_graph(mesh=mesh, norm=None, halo="alltoall")
     x = shard_node_array(dist, data.x, mesh)
     y = dist.shard_nodes(data.y.to(device))
@@ -106,23 +129,26 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     for name, model in (("GAT", GAT(16, 16, 4, heads=2, dropout=0.0, generator=gen)),
                         ("GIN", GIN(16, 16, 4, generator=gen))):
         model = model.to(device)
-        loss = cross_entropy(model(x, dist), y, train)
+        loss = cross_entropy(model(x, dist), y, train, group=group)
         loss.backward()
+        value = group_loss(loss, model.parameters(), group)
         grads = [p.grad for p in model.parameters() if p.requires_grad]
-        if not math.isfinite(loss.item()) or not all(torch.isfinite(g).all() for g in grads):
-            raise AssertionError(f"dryrun_multichip: non-finite {name} loss {loss.item()} or gradient")
+        if not math.isfinite(value) or not all(torch.isfinite(g).all() for g in grads):
+            raise AssertionError(f"dryrun_multichip: non-finite {name} loss {value} or gradient")
 
     # the streamed aggregation with the graph and the features on the host:
     # each part streams its destinations' in-edges, no collective
     x_host = data.x.numpy()
     stream = DistEdgeStream(data.edge_index.numpy(), num_nodes=data.num_nodes, num_parts=n_devices, chunk_edges=64)
-    out = stream.spmm_host(x_host, mesh)
-    if tuple(out.shape) != x_host.shape or not torch.isfinite(out).all():
+    out = stream.spmm_host(x_host, mesh)  # in a group: this process's rows in the partition's layout
+    rows = mesh.num_local_parts * stream.n_max if mesh.grouped else x_host.shape[0]
+    if tuple(out.shape) != (rows, x_host.shape[1]) or not torch.isfinite(out).all():
         raise AssertionError(f"dryrun_multichip: DistEdgeStream gave {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
 
     # tensor parallelism over a 2-D (data, model) mesh
     model_ax = 2 if n_devices % 2 == 0 else 1
-    mesh = make_mesh((n_devices // model_ax, model_ax), ("data", "model"), devices=[device] * n_devices)
+    mesh = make_mesh((n_devices // model_ax, model_ax), ("data", "model"), devices=local)
+    group = mesh.data_group if mesh.grouped else None
     n = 16 * n_devices
     ei, w = gcn_norm(power_law(n, 4 * n, seed=0), num_nodes=n)
     dist = partition_graph(ei, w, num_nodes=n, mesh=mesh, halo="alltoall")
@@ -132,8 +158,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     valid = dist.shard_nodes(torch.ones(n, dtype=torch.bool, device=device), fill=False)
     model = shard_model(GCN(16, 32, 4, dropout=0.0, generator=torch.Generator().manual_seed(0)).to(device), mesh)
     opt = Adam(model.parameters(), lr=1e-2)
-    loss = cross_entropy(model(x, dist), y, valid)  # the padding rows never enter the loss
+    loss = cross_entropy(model(x, dist), y, valid, group=group)  # the padding rows never enter the loss
     loss.backward()
+    value = group_loss(loss, model.parameters(), group)
     opt.step()
-    if not math.isfinite(loss.item()):
-        raise AssertionError(f"dryrun_multichip: non-finite tensor-parallel loss {loss.item()}")
+    if not math.isfinite(value):
+        raise AssertionError(f"dryrun_multichip: non-finite tensor-parallel loss {value}")

@@ -101,9 +101,20 @@ def _normalize(device) -> torch.device:
 
 
 def _subgroups(world: int, rank: int, M: int, n_local: int):
-    """(data group, model group, data index, data count) of a grouped mesh.
-    Every process makes every subgroup, in the same order
-    (``new_group`` is collective over the world)."""
+    """(data group, model group, data index, data count) of a grouped mesh
+    of ``world`` processes with ``n_local`` positions each and a model axis
+    of ``M``. Every process makes every subgroup, in the same order
+    (``new_group`` is collective over the world).
+
+    Where a process holds whole rows of the mesh (``n_local`` a multiple of
+    ``M``), the data group is the world and there is no model group. Where
+    ``span = M / n_local`` processes share one part, the processes ``[d
+    span, (d + 1) span)`` hold part ``d``'s shards and form its model group,
+    and the processes ``{m, m + span, m + 2 span, ...}`` hold the same
+    shards of every part and form a data group. Four processes of one
+    position on a (2, 2) mesh: model groups {0, 1} and {2, 3}, data groups
+    {0, 2} and {1, 3}; on a (1, 2) mesh of two processes: the model group
+    {0, 1} and the data groups {0} and {1}."""
     if n_local % M == 0:  # whole rows of the mesh: data across every process
         return tdist.group.WORLD, None, rank, world
     span = M // n_local  # the processes that share one part

@@ -16,7 +16,12 @@ Nothing on the machine tells a process of its peers: without arguments,
 :func:`initialize` reads the ``torchrun`` environment (``MASTER_ADDR``,
 ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); otherwise pass the address
 (``host:port`` for TCP, or a ``file://`` store), the process count and this
-process's index.
+process's index. On the cards each process holds exactly one: the index of
+``device`` where the launcher names it (``torch.multiprocessing.spawn``
+passes each process its own), else ``LOCAL_RANK`` (``torchrun``), else the
+process index modulo the card count. ``timeout`` (seconds) bounds how long
+a collective waits for the other processes, so that a process whose peer
+has died fails instead of waiting for good.
 
 :func:`all_reduce_gradients` sums the gradients of replicated parameters
 over a group in one coalesced all-reduce (a dtype), the step that keeps
@@ -26,13 +31,14 @@ calls it after ``backward`` over the mesh's ``data_group``.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Iterable, List, Optional
 
 import torch
 import torch.distributed as tdist
 
-__all__ = ["initialize", "is_multihost", "process_count", "local_devices", "all_reduce_gradients"]
+__all__ = ["initialize", "is_multihost", "process_count", "local_devices", "all_reduce_gradients", "barrier"]
 
 
 def initialize(
@@ -41,11 +47,13 @@ def initialize(
     process_id: Optional[int] = None,
     *,
     device="cuda",
+    timeout: Optional[float] = None,
 ) -> None:
     """Make the process group (a no-op when one exists): NCCL where
     ``device`` is a CUDA device (made this process's current device: its
     index, or ``LOCAL_RANK``, or the process index modulo the card count),
-    gloo for ``device="cpu"``."""
+    gloo for ``device="cpu"``. ``timeout``: seconds a collective may wait
+    (torch's default where None)."""
     if tdist.is_initialized():
         return
     device = torch.device(device)
@@ -66,14 +74,19 @@ def initialize(
     if device.type == "cuda":
         index = device.index
         if index is None:
-            index = int(os.environ.get("LOCAL_RANK", int(process_id) % torch.cuda.device_count()))
+            index = int(os.environ.get("LOCAL_RANK", int(process_id) % max(torch.cuda.device_count(), 1)))
+        if not 0 <= index < torch.cuda.device_count():
+            raise RuntimeError(f"process {process_id} asks for card {index}; this host has {torch.cuda.device_count()}")
         torch.cuda.set_device(index)
         backend = "nccl"
     elif device.type == "cpu":
         backend = "gloo"
     else:
         raise ValueError(f"multihost.initialize runs on CUDA or CPU devices, got {device}")
-    tdist.init_process_group(backend, init_method=init_method, world_size=int(num_processes), rank=int(process_id))
+    tdist.init_process_group(
+        backend, init_method=init_method, world_size=int(num_processes), rank=int(process_id),
+        timeout=None if timeout is None else datetime.timedelta(seconds=timeout),
+    )
 
 
 def is_multihost() -> bool:
@@ -88,6 +101,16 @@ def local_devices() -> List[torch.device]:
     """This process's cards, or the CPU where it has none."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     return [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
+
+
+def barrier(device) -> None:
+    """``torch.distributed.barrier`` over the default group that names this
+    process's card on NCCL, which would otherwise guess it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        tdist.barrier()
+        return
+    tdist.barrier(device_ids=[torch.cuda.current_device() if device.index is None else device.index])
 
 
 def all_reduce_gradients(parameters: Iterable[torch.Tensor], group) -> None:

@@ -58,8 +58,9 @@ class TrainConfig:
 
 @dataclass
 class DistConfig:
-    """Multi-device full-graph training knobs (not ported yet: ``num_parts``
-    above 1 raises)."""
+    """Multi-device training knobs: ``num_parts`` graph parts (or, with a
+    batch size, parts of the batch) over the mesh's ``axis_name`` axis; in a
+    ``torch.distributed`` group of W processes a multiple of W."""
 
     num_parts: int = 0
     axis_name: str = "data"

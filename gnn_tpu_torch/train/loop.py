@@ -70,11 +70,14 @@ the mean over all P parts. Dropout draws from one stream a process (rank
 from one process's; without, its run equals one process's up to the order
 of float32 sums (bit for bit in a group of one). Rank 0 writes the
 checkpoints (with every process's random streams) and logs; every process
-restores them.
+restores them. A group of W > 1 processes needs ``dist.num_parts`` to be a
+multiple of W: ``fit`` refuses to run there without parts, where each
+process would train the whole graph as rank 0.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import time
@@ -169,6 +172,13 @@ def _check_supported(cfg: Config) -> None:
             "combine with dist.num_parts"
         )
     world = multihost.process_count()
+    if world > 1 and cfg.dist.num_parts < world:
+        # each process would train the whole graph as rank 0, and all of
+        # them would write the same log and checkpoints
+        raise ValueError(
+            f"fit in a torch.distributed group of {world} processes spreads the graph's parts over them: "
+            f"set dist.num_parts (--dist.num_parts) to a multiple of {world}, got {cfg.dist.num_parts}"
+        )
     if cfg.dist.num_parts > 1 and cfg.dist.num_parts % world:
         raise ValueError(
             f"dist.num_parts={cfg.dist.num_parts} must divide evenly over the {world} processes of the group"
@@ -524,10 +534,11 @@ def fit(
             ckpt.save(step, model, opt, buffer_state(model) or None, {"random_state": state})
             return
         states = [None] * world
-        tdist.all_gather_object(states, state)
+        with torch.cuda.device(mesh.device) if mesh.device.type == "cuda" else contextlib.nullcontext():
+            tdist.all_gather_object(states, state)  # on NCCL through the current card
         if rank == 0:  # parameters, optimizer state and buffers are the same on every process
             ckpt.save(step, model, opt, buffer_state(model) or None, {"random_states": states})
-        tdist.barrier()  # no process reads the directory before rank 0 has written it
+        multihost.barrier(mesh.device)  # no process reads the directory before rank 0 has written it
 
     history = []
     best_val, best_state, patience_left = -1.0, None, t.patience

@@ -7,6 +7,12 @@ Port of ``gnn_tpu/utils/profiling.py``:
   on the CPU;
 * :func:`trace`: a context manager around ``torch.profiler`` that writes a
   Chrome trace;
+* reading such a trace: :func:`device_kernels` (the device's own
+  activity), :func:`union_us` (busy time, overlaps counted once),
+  :func:`kernel_of` (K1, K2 or K3 by the Op in a kernel's name) and
+  :func:`split_by_range` (the kernels inside annotation ranges such as
+  ``halo.exchange``); ``tools/profile_gcn_step.py`` and ``chip_smoke.py
+  --cards N`` read their traces with them;
 * :class:`Chip` and :class:`Roofline`: bytes and operations of a call,
   scored against a card's peak rates. The card is :data:`H100` (NVIDIA's
   data sheet for the SXM part at its full 700 W: 3.35 TB/s, 67 TFLOP/s in
@@ -20,15 +26,19 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from collections import defaultdict
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from gnn_tpu_torch.ops.cuda import bounds
 
-__all__ = ["time_fn", "trace", "Chip", "Roofline", "H100"]
+__all__ = [
+    "time_fn", "trace", "device_kernels", "union_us", "kernel_of", "split_by_range", "KERNEL_OPS", "Chip", "Roofline",
+    "H100",
+]
 
 
 def _first_tensor(out):
@@ -80,6 +90,63 @@ def trace(log_dir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# The Op in a kernel's name -> the port's kernel.
+KERNEL_OPS = (("gnn::GatherHeads", "K3 csr_reduce_* GatherHeads"), ("gnn::Gather", "K1 csr_reduce_* Gather"),
+              ("gnn::Contiguous", "K2 csr_reduce_* Contiguous"))
+
+
+def _on_device(e) -> bool:
+    return e.device_type == torch.autograd.DeviceType.CUDA
+
+
+def device_kernels(prof_events) -> list:
+    """The device's own activity in a ``torch.profiler`` trace: user
+    annotations (e.g. "Optimizer.step#Adam.step") span the gaps between the
+    kernels they cover, so they are left out."""
+    return [e for e in prof_events if _on_device(e) and not getattr(e, "is_user_annotation", False)]
+
+
+def union_us(intervals) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(intervals):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def kernel_of(name: str) -> Optional[str]:
+    """The label of ``KERNEL_OPS`` whose Op the kernel's name holds, else None."""
+    return next((label for op, label in KERNEL_OPS if op in name), None)
+
+
+def split_by_range(prof_events, kernels, steps: int, inside: dict) -> dict:
+    """Device ms and launches per step of the kernels inside the annotation
+    ranges on the device that ``inside`` names (keyed by ``inside[range
+    name](kernel name)``), of K1, K2, K3 and of the rest. Empty where the
+    trace holds no such range."""
+    ranges = [
+        (e.time_range.start, e.time_range.end, e.name) for e in prof_events
+        if _on_device(e) and getattr(e, "is_user_annotation", False) and e.name in inside
+    ]
+    if not ranges:
+        return {}
+    out = defaultdict(lambda: [0.0, 0.0])
+    for e in kernels:
+        start, end = e.time_range.start, e.time_range.end
+        held_by = next((name for lo, hi, name in ranges if lo <= start and end <= hi), None)
+        key = inside[held_by](e.name) if held_by is not None else kernel_of(e.name) or "rest"
+        out[key][0] += (end - start) / 1e3 / steps
+        out[key][1] += 1 / steps
+    return dict(out)
 
 
 @dataclass(frozen=True)

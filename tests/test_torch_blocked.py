@@ -37,6 +37,10 @@ from gnn_tpu_torch.models import GAT, GCN
 from gnn_tpu_torch.nn import load_jax_state_dict
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm_plain
 from gnn_tpu_torch.train import Config, fit
+from torch_jax_graph_core import jax_graph_core  # noqa: F401  (fixture)
+
+# the JAX package's draws and graph-core results come from its C++ library
+pytestmark = pytest.mark.usefixtures("jax_graph_core")
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

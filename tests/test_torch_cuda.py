@@ -782,3 +782,61 @@ def test_tensor_parallel_gcn_on_card_matches_cpu(cuda_device):
     assert abs(results[0][0] - results[1][0]) < 1e-5
     for a, b in zip(results[0][1], results[1][1]):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-5)
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: one process a card")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _spawn_on_four_cards(fn, args: tuple) -> None:
+    """Four processes of ``fn(rank, *args)`` (tests/torch_four_process_worker.py),
+    one a card, 120 s at most."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.spawn(fn, args=args, nprocs=4, join=False)
+    deadline = time.monotonic() + 120
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError("the four-card run took more than 120 s")
+
+
+@pytest.mark.gpu
+def test_spmm_dist_on_four_cards_matches_one_card(four_cards, tmp_path):
+    """NCCL between four cards, one part a card: ``spmm_dist`` forward and
+    dx in each halo mode and the ``gather_src_dist`` VJP equal each card's
+    rows of single-device K1."""
+    import torch_four_process_worker as worker
+
+    _spawn_on_four_cards(worker.cards_spmm, (f"file://{tmp_path / 'store'}",))
+
+
+@pytest.mark.gpu
+def test_fit_on_four_cards_matches_four_parts_on_one_card(four_cards, tmp_path):
+    """``fit`` of the GCN (Adam) and EncoderGCN (SGD) with ``dist.num_parts=4``
+    on four cards against the same ``fit`` with the 4 parts in one process on
+    one card: loss curves at rtol 1e-5, the same K1 / K2 launches (each
+    launch serves every local part), parameters equal on the cards."""
+    import torch_four_process_worker as worker
+    from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr
+    from gnn_tpu_torch.train import Config, fit
+
+    cases = {}
+    for name, optim in (("gcn", "adam"), ("encoder_gcn", "sgd")):
+        case = dict(cfg={"model": {"name": name, "hidden": 16, "dropout": 0.0}, "optim": {"name": optim, "lr": 0.01},
+                         "train": {"epochs": 6, "eval_every": 2}, "dist": {"num_parts": 4}}, nodes=400, seed=5)
+        data = worker.data_of(case)
+        cfg = Config.from_dict(case["cfg"])
+        before = (csr_spmm.launches, segment_sum_csr.launches)
+        _, _, history = fit(cfg, data, model=worker.model_of(cfg, data, None), device=four_cards[0], verbose=False)
+        torch.cuda.synchronize()
+        case["launches"] = [csr_spmm.launches - before[0], segment_sum_csr.launches - before[1]]
+        case["losses"] = [h["loss"] for h in history]
+        cases[name] = case
+    _spawn_on_four_cards(worker.cards_fit, (f"file://{tmp_path / 'store'}", cases))

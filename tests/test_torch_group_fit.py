@@ -66,35 +66,54 @@ def _one_process(case: dict) -> list:
     return history
 
 
+def _full_graph_case(cfg: dict, jax_parts: int) -> dict:
+    """A full-graph case with the JAX ``fit``'s initial weights and its loss
+    curve (on ``jax_parts`` parts of the 8-device mesh, or on one device for
+    0), without the port's one-process curve."""
+    jcfg = JaxConfig.from_json(Config.from_dict(cfg).to_json())
+    jcfg.dist.num_parts = jax_parts
+    jdata = jax_sbm(num_nodes=NODES, num_classes=3, seed=SEED)
+    jmodel = jax_build_model(jcfg, int(jdata.x.shape[1]), 3, jax.random.split(jax.random.PRNGKey(0))[1])
+    params = {k: np.asarray(v) for k, v in jnn.state_dict(jmodel).items()}
+    _, _, jhist = jax_fit(jcfg, jdata, model=jmodel, verbose=False)
+    return dict(cfg=cfg, params=params, reference=[h["loss"] for h in jhist], nodes=NODES, seed=SEED)
+
+
 def _cases(jax_parts: int, gat_optimizer: str = "adam") -> dict:
-    """The full-graph cases with the JAX ``fit``'s initial weights and its
-    loss curve (on ``jax_parts`` parts of the 8-device mesh, or on one
-    device for 0), and the data-parallel sampled case."""
-    cases = {}
-    for name in ("gcn", "gat", "encoder_gcn"):
-        cfg = _cfg(name, **({"optim.name": gat_optimizer} if name == "gat" else {}))
-        jcfg = JaxConfig.from_json(Config.from_dict(cfg).to_json())
-        jcfg.dist.num_parts = jax_parts
-        jdata = jax_sbm(num_nodes=NODES, num_classes=3, seed=SEED)
-        jmodel = jax_build_model(jcfg, int(jdata.x.shape[1]), 3, jax.random.split(jax.random.PRNGKey(0))[1])
-        params = {k: np.asarray(v) for k, v in jnn.state_dict(jmodel).items()}
-        _, _, jhist = jax_fit(jcfg, jdata, model=jmodel, verbose=False)
-        cases[name] = dict(cfg=cfg, params=params, reference=[h["loss"] for h in jhist], nodes=NODES, seed=SEED)
+    """The full-graph cases (``_full_graph_case``) and the data-parallel
+    sampled case, each with the port's one-process curve."""
+    cases = {
+        name: _full_graph_case(_cfg(name, **({"optim.name": gat_optimizer} if name == "gat" else {})), jax_parts)
+        for name in ("gcn", "gat", "encoder_gcn")
+    }
     cases["sage-dp-sampled"] = dict(cfg=_dp_cfg(), params=None, reference=None, nodes=300, seed=0)
     for case in cases.values():
         case["one_process"] = _one_process(case)
     return cases
 
 
-def _run_group(tmp_path, cases: dict, resume_cases: dict) -> None:
-    args = (f"file://{tmp_path / 'store'}", cases, resume_cases, str(tmp_path))
-    ctx = mp.spawn(worker.run, args=args, nprocs=2, join=False)
+def _spawn(fn, args: tuple) -> None:
+    """Two processes of ``fn(rank, *args)``, 120 s at most."""
+    ctx = mp.spawn(fn, args=args, nprocs=2, join=False)
     deadline = time.monotonic() + 120
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
             raise AssertionError("the two-process run took more than 120 s")
+
+
+def _run_group(tmp_path, cases: dict, resume_cases: dict) -> None:
+    _spawn(worker.run, (f"file://{tmp_path / 'store'}", cases, resume_cases, str(tmp_path)))
+
+
+def test_fit_in_a_group_needs_a_part_a_process(tmp_path):
+    """A group of two processes without ``dist.num_parts`` would have both
+    train the whole graph as rank 0 and write the same log and checkpoints:
+    ``fit`` refuses it on each process, naming ``--dist.num_parts``, before
+    it writes anything (also with ``dist.num_parts=1``); the same run with
+    ``dist.num_parts=2`` trains (``tests/torch_group_fit_worker.py::refusal``)."""
+    _spawn(worker.refusal, (f"file://{tmp_path / 'store'}", str(tmp_path)))
 
 
 def test_fit_in_a_two_process_group_matches_one_process_and_jax(tmp_path):

@@ -20,6 +20,10 @@ from gnn_tpu.graphs.generate import stochastic_block_model as jax_sbm
 from gnn_tpu.parallel import partition_graph as jax_partition_graph
 from gnn_tpu_torch import native
 from gnn_tpu_torch.parallel import make_mesh, partition_graph
+from torch_jax_graph_core import jax_graph_core  # noqa: F401  (fixture)
+
+# the JAX package's draws and graph-core results come from its C++ library
+pytestmark = pytest.mark.usefixtures("jax_graph_core")
 
 CPU = torch.device("cpu")
 PLAN = ("send_idx", "t_send_idx", "esrc_coord", "edst_row", "edge_id", "in_degree", "diag")

@@ -30,6 +30,10 @@ from gnn_tpu_torch import nn as tnn
 from gnn_tpu_torch.graphs import Data, NeighborSampler, sample_neighbors, sampling, stochastic_block_model
 from gnn_tpu_torch.models import GAT, GIN, GraphSAGE
 from gnn_tpu_torch.train import HostBatchLoader
+from torch_jax_graph_core import jax_graph_core  # noqa: F401  (fixture)
+
+# the JAX package's draws and graph-core results come from its C++ library
+pytestmark = pytest.mark.usefixtures("jax_graph_core")
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 ADJ_FIELDS = ("src", "dst", "row_ptr", "t_perm", "t_row_ptr")

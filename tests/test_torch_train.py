@@ -26,6 +26,10 @@ from gnn_tpu_torch.nn import load_jax_state_dict
 from gnn_tpu_torch.train import Checkpointer, Config, fit
 from gnn_tpu_torch.train.cli import main, parse_args
 from gnn_tpu_torch.train.loop import build_model
+from torch_jax_graph_core import jax_graph_core  # noqa: F401  (fixture)
+
+# the JAX package's draws and graph-core results come from its C++ library
+pytestmark = pytest.mark.usefixtures("jax_graph_core")
 
 
 def _cfg(**over):

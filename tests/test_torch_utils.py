@@ -93,6 +93,39 @@ def test_time_fn_trace_and_roofline_on_the_cpu(tmp_path):
     assert tr.memory_time_s == jr.memory_time_s
 
 
+def test_trace_reading_counts_overlaps_once_and_splits_by_range():
+    """device_kernels keeps the device's kernels (not its annotations or
+    the host's events); union_us counts overlapping kernels once;
+    split_by_range puts a kernel inside a named range under that range's
+    key and the others under K1 / K2 / K3 or the rest, in ms and launches
+    a step."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(name, start, end, device=DeviceType.CUDA, annotation=False):
+        return SimpleNamespace(name=name, time_range=SimpleNamespace(start=start, end=end), device_type=device,
+                               is_user_annotation=annotation)
+
+    events = [
+        event("halo.exchange", 0.0, 1000.0, annotation=True),
+        event("ncclDevKernel_SendRecv", 100.0, 600.0),
+        event("Memcpy DtoD", 500.0, 900.0),
+        event("void gnn::csr_reduce_kernel<float, 4, 8, gnn::Gather>", 1000.0, 3000.0),
+        event("void gnn::csr_reduce_kernel<float, 4, 8, gnn::GatherHeads>", 4000.0, 5000.0),
+        event("aten::mm", 0.0, 9000.0, device=DeviceType.CPU),
+    ]
+    kernels = tprofiling.device_kernels(events)
+    assert [e.name for e in kernels] == [e.name for e in events[1:5]]
+    assert tprofiling.union_us((e.time_range.start, e.time_range.end) for e in kernels) == 3800.0
+    assert [tprofiling.kernel_of(e.name)[:2] for e in events[3:5]] == ["K1", "K3"]
+    assert tprofiling.kernel_of("Memcpy DtoD") is None
+    split = tprofiling.split_by_range(events, kernels, 2, {"halo.exchange": lambda name: "exchange"})
+    assert split == {"exchange": [0.45, 1.0], tprofiling.KERNEL_OPS[1][1]: [1.0, 0.5],
+                     tprofiling.KERNEL_OPS[0][1]: [0.5, 0.5]}
+    assert tprofiling.split_by_range(events, kernels, 2, {"sampled.sample": str}) == {}
+
+
 def test_entry_on_the_cpu_equals_graft_entry():
     """The flagship GCN forward: the same adjacency, features and
     (carried-across) parameters give the same logits. Its power-law edges

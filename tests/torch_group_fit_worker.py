@@ -4,9 +4,12 @@ the 4 parts (or, data-parallel sampled, 2 of the 4 parts' seeds), and checks
 its loss curve and accuracies against the references it was handed, its
 final parameters and buffers against the other process's bit for bit, and a
 run stopped at a checkpoint and resumed against an uninterrupted one bit for
-bit. Imports no JAX (checked at the end), so that it runs where only torch
-is installed."""
+bit. :func:`refusal` runs ``fit`` without parts in the group, which must
+raise before anything is written, and with 2 parts, which must train.
+Imports no JAX (checked at the end), so that it runs where only torch is
+installed."""
 
+import os
 import sys
 
 import numpy as np
@@ -45,9 +48,12 @@ def tensors_of(model, state) -> list:
 
 
 def check_curves(case: dict, history: list, name: str) -> None:
+    """The loss curve and accuracies against the one-process run (at the
+    case's ``rtol``, 1e-6 by default) and the curve against JAX's (1e-4)."""
     losses = [h["loss"] for h in history]
     want = case["one_process"]
-    np.testing.assert_allclose(losses, [h["loss"] for h in want], rtol=1e-6, err_msg=f"{name} vs one process")
+    rtol = case.get("rtol", 1e-6)
+    np.testing.assert_allclose(losses, [h["loss"] for h in want], rtol=rtol, err_msg=f"{name} vs one process")
     for got, ref in zip(history, want):
         for split in ACCURACIES:
             np.testing.assert_allclose(got[split], ref[split], atol=1e-6, err_msg=f"{name} {split}")
@@ -91,5 +97,39 @@ def run(rank: int, store: str, cases: dict, resume_cases: dict, directory: str) 
         same_on_every_process(tensors_of(model, state), name)
     for name, case in resume_cases.items():
         check_resume(case, f"{directory}/{name}", name)
+    assert not any(name == "jax" or name.startswith("jax.") for name in sys.modules)
+    tdist.destroy_process_group()
+
+
+def refusal(rank: int, store: str, directory: str) -> None:
+    """``fit`` in a group of two without ``dist.num_parts`` raises on each
+    process before it writes a log line or a checkpoint; with
+    ``dist.num_parts=2`` (one part a process) the same run trains and rank 0
+    writes its checkpoints."""
+    torch.set_num_threads(1)
+    multihost.initialize(store, 2, rank, device="cpu")
+    data = stochastic_block_model(num_nodes=60, num_classes=3, seed=2)
+    for parts in (0, 1):
+        cfg = Config.from_dict({"model": {"name": "gcn", "hidden": 8}, "train": {"epochs": 2, "eval_every": 1}})
+        cfg.dist.num_parts = parts
+        cfg.train.checkpoint_dir, cfg.train.checkpoint_every = f"{directory}/ckpt", 1
+        cfg.train.log_file = f"{directory}/log.jsonl"
+        try:
+            fit(cfg, data, device="cpu", verbose=False)
+        except ValueError as e:
+            if "--dist.num_parts" not in str(e):
+                raise AssertionError(f"dist.num_parts={parts}: the refusal does not name --dist.num_parts: {e}")
+        else:
+            raise AssertionError(f"fit in a group of 2 with dist.num_parts={parts} did not raise")
+        tdist.barrier()  # every process has failed before any looks
+        written = [name for name in ("ckpt", "log.jsonl") if os.path.exists(f"{directory}/{name}")]
+        if written:
+            raise AssertionError(f"dist.num_parts={parts}: the refused run wrote {written}")
+    cfg.dist.num_parts = 2
+    _, _, history = fit(cfg, data, device="cpu", verbose=False)
+    if len(history) != 2 or not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"dist.num_parts=2 in the group: history {history}")
+    if not os.listdir(f"{directory}/ckpt"):
+        raise AssertionError("dist.num_parts=2 in the group: no checkpoint was written")
     assert not any(name == "jax" or name.startswith("jax.") for name in sys.modules)
     tdist.destroy_process_group()

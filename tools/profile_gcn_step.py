@@ -72,7 +72,6 @@ import sys
 from collections import defaultdict
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -86,8 +85,8 @@ from chip_smoke import (  # noqa: E402
 from gnn_tpu_torch.ops.cuda import bounds  # noqa: E402
 from gnn_tpu_torch.optim import clip_by_global_norm  # noqa: E402
 from gnn_tpu_torch.train.loop import build_model, build_optimizer, build_step  # noqa: E402
+from gnn_tpu_torch.utils.profiling import device_kernels, kernel_of, split_by_range, union_us  # noqa: E402
 
-DEVICE_TYPES = (DeviceType.CUDA,)
 CONFIGS = {
     "gcn": arxiv_gcn_config, "gat": arxiv_gat_config, "encoder_gcn": arxiv_encoder_config,
     "sage": arxiv_sage_config, "gin": arxiv_gin_config,
@@ -97,57 +96,14 @@ CONFIGS = {
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "gemv")
 
 
-def union_us(intervals) -> float:
-    """Total length of the union of (start, end) intervals."""
-    total, cur_start, cur_end = 0.0, None, None
-    for start, end in sorted(intervals):
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                total += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    if cur_end is not None:
-        total += cur_end - cur_start
-    return total
-
-
-# The Op in a kernel's name -> the port's kernel.
-KERNEL_OPS = (("gnn::GatherHeads", "K3 csr_reduce_* GatherHeads"), ("gnn::Gather", "K1 csr_reduce_* Gather"),
-              ("gnn::Contiguous", "K2 csr_reduce_* Contiguous"))
 # Substrings of the names of PyTorch's kernels inside the SDDMM range.
 SDDMM_PARTS = (("gather", "gathers"), ("index", "gathers"), ("reduce", "reduce"))
-
-
-def split_by_range(prof_events, kernels, steps: int, inside: dict) -> dict:
-    """Device ms and launches per step of the kernels inside the annotation
-    ranges on the device that ``inside`` names (keyed by ``inside[range
-    name](kernel name)``), of K1, K2, K3 and of the rest. Empty where the
-    trace holds no such range."""
-    ranges = [
-        (e.time_range.start, e.time_range.end, e.name) for e in prof_events
-        if e.device_type in DEVICE_TYPES and getattr(e, "is_user_annotation", False)
-        and e.name in inside
-    ]
-    if not ranges:
-        return {}
-    out = defaultdict(lambda: [0.0, 0.0])
-    for e in kernels:
-        start, end = e.time_range.start, e.time_range.end
-        held_by = next((name for lo, hi, name in ranges if lo <= start and end <= hi), None)
-        if held_by is not None:
-            key = inside[held_by](e.name)
-        else:
-            key = next((label for op, label in KERNEL_OPS if op in e.name), "rest")
-        out[key][0] += (end - start) / 1e3 / steps
-        out[key][1] += 1 / steps
-    return dict(out)
 
 
 def layer_of(name: str) -> str:
     """K1, K2 or K3 by the Op in a kernel's name, Linear for a matrix
     product, else the rest."""
-    label = next((label for op, label in KERNEL_OPS if op in name), None)
+    label = kernel_of(name)
     if label is None and any(sub in name.lower() for sub in GEMM_NAMES):
         label = "Linear (matrix products)"
     if label is None and "memcpy" in name.lower():
@@ -243,13 +199,8 @@ def main(argv=None) -> int:
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    # User annotations (e.g. "Optimizer.step#Adam.step") span the gaps between
-    # the kernels they cover, so only real device activity counts.
     events = prof.events()
-    device_events = [
-        e for e in events
-        if e.device_type in DEVICE_TYPES and not getattr(e, "is_user_annotation", False)
-    ]
+    device_events = device_kernels(events)
     if not device_events:
         raise SystemExit("the trace holds no device activity; time with CUDA events only")
     busy = union_us((e.time_range.start, e.time_range.end) for e in device_events) / 1e3 / args.steps
