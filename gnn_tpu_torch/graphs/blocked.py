@@ -28,6 +28,7 @@ import torch.nn.functional as F_
 
 from gnn_tpu_torch import native
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = [
     "BlockedLayout",
@@ -290,9 +291,9 @@ def _diag_product(diag: torch.Tensor, xw: torch.Tensor) -> torch.Tensor:
 def _blocked_matvec(lay: BlockedLayout, x: torch.Tensor, spmm_fn) -> torch.Tensor:
     N, F = x.shape
     B, R, _ = lay.diag.shape
-    # a profiler range around the block product: tools/profile_gcn_step.py
-    # splits the step's device time by it (no cost without a profiler)
-    with torch.profiler.record_function("blocked_matvec.diag"):
+    # a span around the block product: tools/profile_gcn_step.py splits the
+    # step's device time by it
+    with span("blocked_matvec.diag"):
         xw = F_.pad(x, (0, 0, 0, B * R - N)).view(B, R, F).to(lay.diag.dtype)
         out = _diag_product(lay.diag, xw).view(B * R, F)[:N].to(x.dtype)
     if lay.num_rem_edges:

@@ -29,6 +29,7 @@ import torch
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
 from gnn_tpu_torch.graphs.convert import as_numpy
+from gnn_tpu_torch.utils.tracing import emit
 
 __all__ = ["NeighborSampler", "sample_neighbors"]
 
@@ -155,11 +156,13 @@ class NeighborSampler:
     ) -> Tuple[torch.Tensor, List[Adjacency]]:
         """Per-batch node ids (int64, [seeds | hop-1 neighbours | ...]) and
         the constant adjacencies. ``generator`` lives on the sampler's
-        device; the hops draw from it in turn."""
+        device; the hops draw from it in turn. The node ids are emitted
+        (``utils.tracing.emit("sample", ...)``)."""
         frontier = torch.as_tensor(seeds).to(self.device).long()
         batch_size = int(frontier.shape[0])
         for f in self.fanouts:
             nbrs = sample_neighbors(self.row_ptr, self.col, frontier, f, generator=generator)
             # [frontier | neighbours row-major]: _hop_adjacency's source positions
             frontier = torch.cat([frontier, nbrs.reshape(-1)])
+        emit("sample", nodes=frontier)
         return frontier, self.adjacencies(batch_size)

@@ -41,8 +41,9 @@ from gnn_tpu_torch.nn.activations import leaky_relu
 from gnn_tpu_torch.nn.dropout import dropout as dropout_fn
 from gnn_tpu_torch.nn.linear import Linear
 from gnn_tpu_torch.ops.cuda.spmm_heads import spmm_heads_csr
+from gnn_tpu_torch.ops.edge_agg import edge_aggregate_max
 from gnn_tpu_torch.ops.gather import gather_dst_edges, gather_src_edges
-from gnn_tpu_torch.ops.segment import segment_max, segment_sum_edges
+from gnn_tpu_torch.ops.segment import segment_sum_edges
 
 __all__ = ["GATConv"]
 
@@ -51,10 +52,11 @@ def _segment_max_shift(adj: Adjacency, e: torch.Tensor) -> torch.Tensor:
     """Per-destination max of the edge scores, gathered back per edge and
     held constant in the backward. The shift must be per segment: a global
     max underflows every segment whose scores sit far below it. One
-    plain-torch max for every layout: the JAX package's choice between
-    ``edge_aggregate_max`` and ``segment_max`` (``gnn_tpu/mp/gat.py:52-57``)
-    is between two layouts of the same max."""
-    m = segment_max(e.detach(), adj.dst, adj.num_dst_nodes)
+    plain-torch max for every layout, ``edge_aggregate_max`` over the
+    by-destination CSR (``segment_max`` by ``adj.dst``): the JAX package's
+    choice between ``edge_aggregate_max`` and ``segment_max``
+    (``gnn_tpu/mp/gat.py:52-57``) is between two layouts of the same max."""
+    m = edge_aggregate_max(e, adj.edge_agg_layouts()[0])
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # empty segments
     return m.index_select(0, adj.dst.long())
 

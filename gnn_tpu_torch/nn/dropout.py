@@ -3,7 +3,9 @@
 Port of ``gnn_tpu/nn/dropout.py``: a Bernoulli(1 - rate) keep mask scaled by
 1/(1 - rate), applied only in training mode (``module.train()``). The mask
 comes from the generator passed to ``forward`` (the default generator when
-None); its bits differ from ``jax.random``'s.
+None); its bits differ from ``jax.random``'s. The draw and its application
+run in the span ``dropout``, and each keep mask is emitted
+(``utils.tracing.emit("dropout", ...)``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from gnn_tpu_torch.utils.tracing import emit, span
 
 __all__ = ["Dropout", "dropout"]
 
@@ -28,8 +32,11 @@ def dropout(
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    with span("dropout"):
+        mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+        out = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+    emit("dropout", x=x, out=out, mask=mask, rate=rate)
+    return out
 
 
 class Dropout(nn.Module):

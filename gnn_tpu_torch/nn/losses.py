@@ -22,6 +22,8 @@ from typing import Optional
 import torch
 import torch.distributed as tdist
 
+from gnn_tpu_torch.utils.tracing import emit
+
 __all__ = [
     "cross_entropy",
     "nll_loss",
@@ -55,7 +57,9 @@ def cross_entropy(
     label_smoothing: float = 0.0,
     group=None,
 ) -> torch.Tensor:
-    """Softmax cross entropy with integer targets. logits [N, C], targets [N]."""
+    """Softmax cross entropy with integer targets. logits [N, C], targets [N].
+    The logits are emitted (``utils.tracing.emit("cross_entropy", ...)``)."""
+    emit("cross_entropy", logits=logits)
     log_probs = torch.log_softmax(logits.float(), dim=-1)
     picked = log_probs.gather(-1, targets.long()[:, None])[:, 0]
     if label_smoothing > 0.0:

@@ -10,7 +10,7 @@ torch (the JAX package also computes dw outside its kernel).
 
 :func:`csr_spmm` launches the kernel for CUDA tensors and takes
 :func:`csr_spmm_plain` only for CPU tensors. It counts its launches in
-``csr_spmm.launches``.
+``csr_spmm.launches``. The backward runs in the span ``agg.spmm.bwd``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from gnn_tpu_torch.ops.cuda import _build, _launch
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = ["csr_spmm", "csr_spmm_plain", "spmm_csr"]
 
@@ -83,17 +84,18 @@ class _CsrSpmm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, weight, t_weight = ctx.saved_tensors
-        adj = ctx.adj
-        g = g.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = csr_spmm(adj.t_row_ptr, adj.t_col, t_weight, g)
-        if ctx.needs_input_grad[1]:
-            dw = (
-                g.float().index_select(0, adj.dst.long())
-                * x.float().index_select(0, adj.src.long())
-            ).sum(-1).to(weight.dtype)
+        with span("agg.spmm.bwd"):
+            x, weight, t_weight = ctx.saved_tensors
+            adj = ctx.adj
+            g = g.contiguous()
+            dx = dw = None
+            if ctx.needs_input_grad[0]:
+                dx = csr_spmm(adj.t_row_ptr, adj.t_col, t_weight, g)
+            if ctx.needs_input_grad[1]:
+                dw = (
+                    g.float().index_select(0, adj.dst.long())
+                    * x.float().index_select(0, adj.src.long())
+                ).sum(-1).to(weight.dtype)
         return dx, dw, None, None
 
 

@@ -21,7 +21,9 @@ float32 and the output has x's dtype.
 
 :func:`csr_spmm_heads` launches the kernel for CUDA tensors and takes
 :func:`csr_spmm_heads_plain` only for CPU tensors. It counts its launches in
-``csr_spmm_heads.launches``.
+``csr_spmm_heads.launches``. :func:`spmm_heads_csr` runs in the span
+``agg.spmm_heads``, its backward in ``agg.spmm_heads.bwd`` and the SDDMM
+inside that in ``spmm_heads.dw``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional
 import torch
 
 from gnn_tpu_torch.ops.cuda import _build, _launch
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = ["csr_spmm_heads", "csr_spmm_heads_plain", "spmm_heads_csr"]
 
@@ -124,20 +127,21 @@ class _SpmmHeads(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        adj = ctx.adj
-        g = g.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = csr_spmm_heads(adj.t_row_ptr, adj.t_col, w, g, w_index=adj.t_perm)
-        if ctx.needs_input_grad[1]:
-            # a profiler range around the SDDMM: tools/profile_gcn_step.py
-            # splits the step's device time by it (no cost without a profiler)
-            with torch.profiler.record_function("spmm_heads.dw"):
-                dw = (
-                    g.float().index_select(0, adj.dst.long())
-                    * x.float().index_select(0, adj.src.long())
-                ).sum(-1)
+        with span("agg.spmm_heads.bwd"):
+            x, w = ctx.saved_tensors
+            adj = ctx.adj
+            g = g.contiguous()
+            dx = dw = None
+            if ctx.needs_input_grad[0]:
+                dx = csr_spmm_heads(adj.t_row_ptr, adj.t_col, w, g, w_index=adj.t_perm)
+            if ctx.needs_input_grad[1]:
+                # a span of its own around the SDDMM: the benchmark's
+                # sddmm_ms and tools/profile_gcn_step.py read it
+                with span("spmm_heads.dw"):
+                    dw = (
+                        g.float().index_select(0, adj.dst.long())
+                        * x.float().index_select(0, adj.src.long())
+                    ).sum(-1)
         return dx, dw, None
 
 
@@ -147,4 +151,5 @@ def spmm_heads_csr(adj, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     order)."""
     if w.shape != (adj.num_edges, x.shape[1]):
         raise ValueError(f"w must be [{adj.num_edges}, {x.shape[1]}], got {tuple(w.shape)}")
-    return _SpmmHeads.apply(x.contiguous(), w.float().contiguous(), adj)
+    with span("agg.spmm_heads"):
+        return _SpmmHeads.apply(x.contiguous(), w.float().contiguous(), adj)

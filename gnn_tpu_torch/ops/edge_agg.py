@@ -23,7 +23,9 @@ is a CSR over edge positions:
 * :class:`WeightedAggLayout` (the static-weight variant) is a CSR of
   ``(col, w, eid)`` that :func:`weighted_agg_matvec` reduces on K1.
 
-On the CPU the kernels' plain versions run.
+The single-device ops run in the spans ``agg.edge_aggregate``,
+``agg.edge_aggregate.bwd`` and ``agg.edge_aggregate_max``. On the CPU the
+kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import torch
 from gnn_tpu_torch.graphs.sorted_ell import KMAX
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = [
     "EdgeAggLayout",
@@ -123,7 +126,8 @@ class _EdgeAggregate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return g.index_select(0, ctx.lay.edge_node.long()), None
+        with span("agg.edge_aggregate.bwd"):
+            return g.index_select(0, ctx.lay.edge_node.long()), None
 
 
 def _check_edges(msg: torch.Tensor, lay: EdgeAggLayout) -> None:
@@ -136,6 +140,14 @@ def edge_aggregate(msg: torch.Tensor, lay: EdgeAggLayout) -> torch.Tensor:
     """out[n] = sum of the msg rows whose aggregation node is n; msg [E, F]
     in the canonical edge order the layout was built against. K2 or K1 (see
     the module docstring); differentiable in msg (VJP: ``g[edge_node]``)."""
+    with span("agg.edge_aggregate"):
+        return _edge_aggregate(msg, lay)
+
+
+def _edge_aggregate(msg: torch.Tensor, lay: EdgeAggLayout) -> torch.Tensor:
+    """:func:`edge_aggregate` without its span, for the ops that call it
+    inside a span of their own: the kernel's launch is then marked with
+    the span of its call site."""
     _check_edges(msg, lay)
     return _EdgeAggregate.apply(msg.contiguous(), lay)
 
@@ -147,7 +159,8 @@ def edge_aggregate_max(msg: torch.Tensor, lay: EdgeAggLayout) -> torch.Tensor:
     from gnn_tpu_torch.ops.segment import segment_max  # segment.py imports this module
 
     _check_edges(msg, lay)
-    return segment_max(msg.detach(), lay.edge_node, lay.num_nodes)
+    with span("agg.edge_aggregate_max"):
+        return segment_max(msg.detach(), lay.edge_node, lay.num_nodes)
 
 
 @dataclasses.dataclass(frozen=True)

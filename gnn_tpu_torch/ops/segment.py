@@ -7,8 +7,9 @@ are plain torch reductions over explicit segment ids (what
 package has no kernel for it either. :func:`segment_sum_edges` reduces
 per-edge values in an adjacency's dst-sorted order to per-destination sums
 through kernel K2 (:func:`~gnn_tpu_torch.ops.edge_agg.edge_aggregate` over
-the adjacency's destination CSR), with the backward a gather by destination
-(as at ``gnn_tpu/ops/segment.py:204-206``). ``backend='agg'`` raises the JAX
+the adjacency's destination CSR, in the span ``agg.segment_sum_edges``),
+with the backward a gather by destination (as at
+``gnn_tpu/ops/segment.py:204-206``). ``backend='agg'`` raises the JAX
 package's error where the adjacency has no ``edge_agg``; the other
 ``backend=`` values, ``indices_are_sorted=`` and ``interpret=`` steer the JAX
 package's lowering only; they are accepted and ignored here, so that its
@@ -19,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from gnn_tpu_torch.ops.edge_agg import edge_aggregate
+from gnn_tpu_torch.ops.edge_agg import _edge_aggregate
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = [
     "segment_sum",
@@ -115,5 +117,6 @@ def segment_sum_edges(
     if shape[0] != adj.num_edges:
         raise ValueError(f"expected {adj.num_edges} edge values, got {shape[0]}")
     lay = adj.edge_agg_layouts()[0]
-    out = edge_aggregate(values.reshape(shape[0], -1), lay)
+    with span("agg.segment_sum_edges"):
+        out = _edge_aggregate(values.reshape(shape[0], -1), lay)
     return out.reshape((adj.num_dst_nodes,) + tuple(shape[1:]))

@@ -23,7 +23,9 @@ retired ``'pallas'`` raises, as in the JAX package. A node-partitioned
 so GCN, GIN and EncoderGCN run on it unchanged; its ``with_weight(None)``
 view of a weight-baked partition takes the dynamic path with unit weights. :func:`spmm_coo` is the
 one-off product over a bare COO edge list, without a prepared adjacency:
-plain torch on every device. On the CPU the kernels' plain versions run.
+plain torch on every device. The single-device :func:`spmm` runs in the
+span ``agg.spmm`` and its backward in ``agg.spmm.bwd``. On the CPU the
+kernels' plain versions run.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency
 from gnn_tpu_torch.ops.cuda.spmm import spmm_csr
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = ["spmm", "spmm_coo", "spmm_edge_weighted"]
 
@@ -59,7 +62,8 @@ class _BlockedSpmm(torch.autograd.Function):
     def backward(ctx, g):
         from gnn_tpu_torch.graphs.blocked import blocked_matvec
 
-        return blocked_matvec(ctx.adj.t_blocked, g.contiguous()), None
+        with span("agg.spmm.bwd"):
+            return blocked_matvec(ctx.adj.t_blocked, g.contiguous()), None
 
 
 def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
@@ -82,18 +86,18 @@ def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Ten
                 "spmm backend 'blocked' needs the cluster-packed layout: build the "
                 "adjacency with build_adjacency(..., reorder='cluster')"
             )
-        return _BlockedSpmm.apply(x, adj)
-    if backend == "pallas":
+    elif backend == "pallas":
         raise ValueError(
             "spmm backend 'pallas' is retired: it wins no measured regime in the "
             "JAX package. Use backend='auto'."
         )
-    if backend in _LAYOUT_ERRORS:
+    elif backend in _LAYOUT_ERRORS:
         if adj.layout != backend:
             raise ValueError(_LAYOUT_ERRORS[backend])
     elif backend != "segment":
         raise ValueError(f"unknown spmm backend '{backend}'")
-    return spmm_csr(adj, x)
+    with span("agg.spmm"):
+        return _BlockedSpmm.apply(x, adj) if backend == "blocked" else spmm_csr(adj, x)
 
 
 def spmm_edge_weighted(adj: Adjacency, weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -15,10 +15,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gnn_tpu_torch.optim.base import Optimizer
+
 __all__ = ["Adam", "AdamW"]
 
 
-class Adam(torch.optim.Optimizer):
+class Adam(Optimizer):
     def __init__(
         self,
         params,
@@ -35,38 +37,31 @@ class Adam(torch.optim.Optimizer):
         )
         super().__init__(params, defaults)
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        for group in self.param_groups:
-            lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
-            wd, decoupled = group["weight_decay"], group["decoupled_weight_decay"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                if wd != 0.0 and not decoupled:
-                    g = g + wd * p
-                state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["exp_avg"] = torch.zeros_like(p)
-                    state["exp_avg_sq"] = torch.zeros_like(p)
-                state["step"] += 1
-                t = np.float32(state["step"])
-                bc1 = float(np.float32(1) - np.float32(b1) ** t)
-                bc2 = float(np.float32(1) - np.float32(b2) ** t)
-                m, v = state["exp_avg"], state["exp_avg_sq"]
-                m.mul_(b1).add_((1 - b1) * g)
-                v.mul_(b2).add_((1 - b2) * g.square())
-                upd = (-lr * (m / bc1)) / ((v / bc2).sqrt() + eps)
-                if wd != 0.0 and decoupled:
-                    upd = upd - lr * wd * p
-                p.add_(upd)
-        return loss
+    def _update(self, group: dict) -> None:
+        lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
+        wd, decoupled = group["weight_decay"], group["decoupled_weight_decay"]
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            g = p.grad
+            if wd != 0.0 and not decoupled:
+                g = g + wd * p
+            state = self.state[p]
+            if not state:
+                state["step"] = 0
+                state["exp_avg"] = torch.zeros_like(p)
+                state["exp_avg_sq"] = torch.zeros_like(p)
+            state["step"] += 1
+            t = np.float32(state["step"])
+            bc1 = float(np.float32(1) - np.float32(b1) ** t)
+            bc2 = float(np.float32(1) - np.float32(b2) ** t)
+            m, v = state["exp_avg"], state["exp_avg_sq"]
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g.square())
+            upd = (-lr * (m / bc1)) / ((v / bc2).sqrt() + eps)
+            if wd != 0.0 and decoupled:
+                upd = upd - lr * wd * p
+            p.add_(upd)
 
 
 class AdamW(Adam):

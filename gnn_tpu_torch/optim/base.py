@@ -1,9 +1,14 @@
-"""Gradient transformations applied before an optimizer's step.
+"""The port's optimizers' base, and gradient transformations applied before
+an optimizer's step.
 
-Port of ``gnn_tpu/optim/base.py::clip_by_global_norm``. The JAX package
-chains it in front of the optimizer (``chain(clip_by_global_norm(c), base)``);
-here it rescales the ``.grad`` of the parameters in place, between
-``backward()`` and ``step()``.
+:class:`Optimizer` is ``torch.optim.Optimizer`` with the port's spans: its
+``zero_grad`` runs in ``optim.zero_grad`` and its ``step`` in ``optim.step``
+(every per-leaf kernel of the update); a subclass writes ``_update(group)``,
+the update of one parameter group. :func:`clip_by_global_norm` is the port
+of ``gnn_tpu/optim/base.py::clip_by_global_norm``. The JAX package chains it
+in front of the optimizer (``chain(clip_by_global_norm(c), base)``); here it
+rescales the ``.grad`` of the parameters in place, between ``backward()``
+and ``step()``.
 """
 
 from __future__ import annotations
@@ -12,7 +17,29 @@ from typing import Iterable
 
 import torch
 
-__all__ = ["clip_by_global_norm"]
+from gnn_tpu_torch.utils.tracing import span
+
+__all__ = ["Optimizer", "clip_by_global_norm"]
+
+
+class Optimizer(torch.optim.Optimizer):
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        with span("optim.zero_grad"):
+            super().zero_grad(set_to_none)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        with span("optim.step"):
+            for group in self.param_groups:
+                self._update(group)
+        return loss
+
+    def _update(self, group: dict) -> None:
+        raise NotImplementedError
 
 
 @torch.no_grad()

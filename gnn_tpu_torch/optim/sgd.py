@@ -16,10 +16,12 @@ from __future__ import annotations
 
 import torch
 
+from gnn_tpu_torch.optim.base import Optimizer
+
 __all__ = ["SGD"]
 
 
-class SGD(torch.optim.Optimizer):
+class SGD(Optimizer):
     def __init__(
         self,
         params,
@@ -36,29 +38,22 @@ class SGD(torch.optim.Optimizer):
         )
         super().__init__(params, defaults)
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        for group in self.param_groups:
-            lr, mu, damp = group["lr"], group["momentum"], group["dampening"]
-            wd, nesterov = group["weight_decay"], group["nesterov"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                if wd != 0.0:
-                    g = g + wd * p
-                if mu == 0.0:
-                    d = g
-                else:
-                    state = self.state[p]
-                    if not state:
-                        state["velocity"] = torch.zeros_like(p)
-                    v = state["velocity"]
-                    v.mul_(mu).add_((1.0 - damp) * g)
-                    d = g + mu * v if nesterov else v
-                p.add_(-lr * d)
-        return loss
+    def _update(self, group: dict) -> None:
+        lr, mu, damp = group["lr"], group["momentum"], group["dampening"]
+        wd, nesterov = group["weight_decay"], group["nesterov"]
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            g = p.grad
+            if wd != 0.0:
+                g = g + wd * p
+            if mu == 0.0:
+                d = g
+            else:
+                state = self.state[p]
+                if not state:
+                    state["velocity"] = torch.zeros_like(p)
+                v = state["velocity"]
+                v.mul_(mu).add_((1.0 - damp) * g)
+                d = g + mu * v if nesterov else v
+            p.add_(-lr * d)

@@ -45,6 +45,7 @@ from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm
 from gnn_tpu_torch.ops.segment import segment_max
 from gnn_tpu_torch.parallel.partition import DistGraph
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = [
     "spmm_dist",
@@ -83,7 +84,7 @@ def _exchange(dist: DistGraph, v: torch.Tensor, idx: torch.Tensor, out=None) -> 
     """The targeted exchange: the [L P H, F] rows the local parts receive,
     part q's from part g at ``q P H + g H`` (written into ``out`` if given)."""
     L, P, H, F = dist.num_local_parts, dist.num_parts, dist.h_max, v.shape[1]
-    with torch.profiler.record_function("halo.exchange"):
+    with span("halo.exchange"):
         if not dist.grouped:
             return torch.index_select(v, 0, idx, out=out) if out is not None else v.index_select(0, idx)
         sent = v.index_select(0, idx)
@@ -102,7 +103,7 @@ def _return_partials(dist: DistGraph, rem: torch.Tensor) -> torch.Tensor:
     if not dist.grouped:
         return rem
     L, P, H, F = dist.num_local_parts, dist.num_parts, dist.h_max, rem.shape[1]
-    with torch.profiler.record_function("halo.exchange"):
+    with span("halo.exchange"):
         sent = rem.view(L, P // L, L, H, F).permute(1, 2, 0, 3, 4).contiguous()
         recv = torch.empty_like(sent)
         tdist.all_to_all_single(recv, sent, group=dist.group)
@@ -113,7 +114,7 @@ def _all_gather(dist: DistGraph, v: torch.Tensor) -> torch.Tensor:
     if not dist.grouped:
         return v
     out = v.new_empty((dist.num_parts * dist.n_max, v.shape[1]))
-    with torch.profiler.record_function("halo.exchange"), warnings.catch_warnings():
+    with span("halo.exchange"), warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)  # renamed in later torch releases
         tdist.all_gather_into_tensor(out, v.contiguous(), group=dist.group)
     return out
@@ -123,7 +124,7 @@ def _reduce_scatter(dist: DistGraph, v: torch.Tensor) -> torch.Tensor:
     if not dist.grouped:
         return v
     out = v.new_empty((dist.num_local_parts * dist.n_max, v.shape[1]))
-    with torch.profiler.record_function("halo.exchange"), warnings.catch_warnings():
+    with span("halo.exchange"), warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)  # renamed in later torch releases
         tdist.reduce_scatter_tensor(out, v.contiguous(), group=dist.group)
     return out
@@ -134,7 +135,7 @@ def _diag(dist: DistGraph, v: torch.Tensor, transpose: bool) -> torch.Tensor:
     R = dist.block_rows
     d = dist.diag.view(-1, R, R)
     d = d.transpose(1, 2) if transpose else d
-    with torch.profiler.record_function("blocked_matvec.diag"):
+    with span("blocked_matvec.diag"):
         vw = v.view(-1, R, v.shape[1]).to(d.dtype)
         return _diag_product(d, vw).view(v.shape).to(v.dtype)
 

@@ -89,7 +89,6 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 from torch import nn
-from torch.profiler import record_function
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency
 from gnn_tpu_torch.graphs.blocked import cluster_order
@@ -106,6 +105,7 @@ from gnn_tpu_torch.train.checkpoint import Checkpointer
 from gnn_tpu_torch.train.config import Config
 from gnn_tpu_torch.train.host_loader import HostBatchLoader
 from gnn_tpu_torch.train.metrics import MetricLogger, Throughput
+from gnn_tpu_torch.utils.tracing import span
 
 __all__ = ["build_model", "build_optimizer", "build_step", "TrainStep", "fit", "evaluate"]
 
@@ -293,9 +293,9 @@ def _restore_random_state(state: dict, dropout_gen, sample_gens, rng_np, loader)
 
 @dataclass
 class TrainStep:
-    """One configuration's training step, as ``fit`` runs it: ``loss()``
-    draws what the step draws (seeds, neighbours, dropout) and returns the
-    step's loss, ready for ``backward``. The rest is what the step reads:
+    """One configuration's training step, as ``fit`` runs it (:meth:`step`):
+    ``loss()`` draws what the step draws (seeds, neighbours, dropout) and
+    returns the step's loss, ready for ``backward``. The rest is what the step reads:
     ``data`` and ``adj`` as they lie on the device (``adj`` None with
     ``train.host_features``, whose ``data`` stays where it was; a partitioned
     step's ``adj`` is its ``DistGraph`` and ``data`` its padded layout), the
@@ -320,6 +320,22 @@ class TrainStep:
         """The process group the step's sums ride (the mesh's data group),
         None in one process."""
         return self.mesh.data_group if self.mesh is not None and self.mesh.grouped else None
+
+    def step(self, opt: torch.optim.Optimizer, params: list, clip: float = 0.0) -> torch.Tensor:
+        """One training step of ``params`` by ``opt``, as ``fit`` runs it:
+        the gradients cleared, :attr:`loss`, its backward, the gradients
+        summed over the :attr:`group` (before clipping: it reads the
+        group's gradients), clipped to a global norm of ``clip`` where
+        ``clip > 0``, and the optimizer's step. Returns the loss."""
+        opt.zero_grad(set_to_none=True)
+        loss = self.loss()
+        loss.backward()
+        if self.group is not None:
+            multihost.all_reduce_gradients(params, self.group)
+        if clip > 0:
+            clip_by_global_norm(params, clip)
+        opt.step()
+        return loss
 
 
 def _check_mask_kwarg(model: nn.Module) -> None:
@@ -372,8 +388,8 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
     """The training step of ``cfg`` for ``model`` (already on ``device``)
     over ``data``: the one-time prep of ``fit`` (adjacency or partition,
     sampler or host loader, moved to the device or left on the host) and the
-    step's loss. A sampled step marks its sampling and its gather for a
-    profiler with the ranges ``sampled.sample`` and ``sampled.gather``."""
+    step's loss. A sampled step marks its sampling and its gather with the
+    spans ``sampled.sample`` and ``sampled.gather``."""
     t = cfg.train
     sampled = t.batch_size > 0
     n_parts = max(cfg.dist.num_parts, 1)
@@ -427,10 +443,10 @@ def build_step(cfg: Config, data: Data, model: nn.Module, device: torch.device) 
     rng_np = np.random.default_rng(t.seed)  # the same seeds on every process
 
     def sampled_loss(gen: torch.Generator, seeds: np.ndarray) -> torch.Tensor:
-        with record_function("sampled.sample"):
+        with span("sampled.sample"):
             seeds = torch.from_numpy(seeds).to(device)
             nodes, adjs = sampler.sample(gen, seeds)
-        with record_function("sampled.gather"):
+        with span("sampled.gather"):
             feats, ys = data.x.index_select(0, nodes), data.y.index_select(0, seeds)
         return cross_entropy(model.forward_sampled(feats, adjs, generator=dropout_gen), ys)
 
@@ -546,14 +562,7 @@ def fit(
     thr.start()
     for epoch in range(start_epoch, t.epochs):
         t_step = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss = train_step.loss()
-        loss.backward()
-        if group is not None:
-            multihost.all_reduce_gradients(params, group)  # before clipping: it reads the group's gradients
-        if cfg.optim.grad_clip > 0:
-            clip_by_global_norm(params, cfg.optim.grad_clip)
-        opt.step()
+        loss = train_step.step(opt, params, cfg.optim.grad_clip)
         thr.step()
         if (epoch + 1) % t.eval_every == 0 or epoch == t.epochs - 1:
             if group is not None:
