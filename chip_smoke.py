@@ -60,7 +60,12 @@ launch them at: K1 with a null weight forward on each hop of fanouts [15,
 10, 5] (F = 128, 256, 256) and of the host path's [10, 5] (F = 128, 256),
 transposed on all but the outermost; K3 forward and transposed, K2 and K1
 over ``col = t_perm`` on both hops of the GAT's [10, 5], at (8, 32) on the
-outer and (1, 40) on the inner. Phase 1-relabel builds the power-law graph
+outer and (1, 40) on the inner. Phase 1-sddmm holds GAT's attention-weight
+gradient in K3's backward (``sddmm_heads``, ``csrc/gat_sddmm.cu``) against
+the expression it replaced, over the whole graph at (H, F) = (8, 8) and
+(1, 40) (the benchmark's GAT) and (8, 32), and over the benchmark's sampled
+hops (batch 1024, fanouts [25, 10]) at (8, 8) outer and (1, 40) inner.
+Phase 1-relabel builds the power-law graph
 again with ``reorder=True``, the degree-bucket node order that ``fit``'s
 default ``train.reorder='auto'`` trains in, and holds K1 forward and dx at F
 in {40, 128, 256} and with a null weight at F=128, K3 at (8, 32) and K2 at
@@ -173,7 +178,7 @@ from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
 from gnn_tpu_torch.ops.cuda import _build, bounds
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
-from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain
+from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain, sddmm_heads, sddmm_heads_plain
 from gnn_tpu_torch.ops.edge_agg import edge_aggregate, edge_aggregate_max
 from gnn_tpu_torch.optim import clip_by_global_norm
 from gnn_tpu_torch.train import Config, fit
@@ -223,6 +228,11 @@ KERNELS = {
         source="gnn_tpu_torch/csrc/gat_spmm.cu",
         replaces="gnn_tpu/mp/gat.py:201",
     ),
+    # GAT's attention-weight gradient in K3's backward
+    "sddmm_heads": dict(
+        source="gnn_tpu_torch/csrc/gat_sddmm.cu",
+        replaces="none: XLA's VJP of gnn_tpu/mp/gat.py:193-202",
+    ),
     # A composition, not a kernel of its own: torch.bmm (the library) over the
     # dense blocks, then K1 over the remainder CSR
     "blocked_matvec": dict(
@@ -233,7 +243,7 @@ KERNELS = {
 }
 COUNTERS = {
     "csr_spmm": csr_spmm, "segment_sum_csr": segment_sum_csr, "csr_spmm_heads": csr_spmm_heads,
-    "blocked_matvec": blocked_matvec,
+    "sddmm_heads": sddmm_heads, "blocked_matvec": blocked_matvec,
 }
 
 
@@ -660,15 +670,17 @@ def phase1_unweighted(adj, dev, results) -> None:
 
 def check_cases(results, cases, tag: str, dtype, **shape) -> dict:
     """Each case (kernel name, what, kernel, plain version, args, bound,
-    library call): the kernel against its plain version and a second call of
-    itself, its time, the plain version's and, in float32, the library
-    call's, as one phase-1 row. Returns the kernel's ms by (name, what)."""
+    library call or None): the kernel against its plain version and a second
+    call of itself, its time, the plain version's and, in float32, the
+    library call's, as one phase-1 row. Returns the kernel's ms by (name,
+    what)."""
     times = {}
     for name, what, kernel, plain, args, bound, library in cases:
         got = kernel(*args)
         err = compare(f"{name} {what} {tag}", got, plain(*args), dtype)
         check_repeat(f"{name} {what} {tag}", kernel, args, got)
-        lib = library_ms(f"{name} {what} {tag}", library, got) if dtype == torch.float32 else None
+        timed = library is not None and dtype == torch.float32
+        lib = library_ms(f"{name} {what} {tag}", library, got) if timed else None
         times[name, what] = time_ms(lambda: kernel(*args))
         record(results, name, what, tag, dtype, err, times[name, what],
                time_ms(lambda: plain(*args)), bound, lib, **shape)
@@ -759,6 +771,42 @@ def phase1_hop(dev, results) -> None:
             ), tag, dtype, H=H, F=F, hop=f"gat-{label}", edges=e)
             log(f"phase1-hop bitwise repeat {tag}: K3 fwd, K3 dh, K2, K1 equal")
         del ex, alpha, x32, g32, ge32, a_fwd, a_t, a_perm
+    torch.cuda.empty_cache()
+
+
+# (H, F) of the SDDMM's phase-1 rows over the whole graph: the GAT cells of
+# the benchmark (8 x 8, then 1 x 40) and this script's GAT (8 x 32); and of
+# its rows over the benchmark's sampled hops (fanouts [25, 10]), outermost first
+SDDMM_HEADS = ((8, 8), (1, 40), (8, 32))
+SDDMM_HOP_FANOUTS, SDDMM_HOP_HEADS = (25, 10), ((8, 8), (1, 40))
+
+
+def phase1_sddmm(adj, dev, results) -> None:
+    """GAT's attention-weight gradient (``sddmm_heads``, K3's backward)
+    against its plain version, the expression it replaced, over the whole
+    graph's GAT adjacency and over the hops of the benchmark's sampled GAT
+    (batch 1024, fanouts [25, 10]), float32 and bfloat16. No one library
+    call computes it."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    hops = [a.to(dev) for a in hop_adjacencies(SAMPLED_BATCH, SDDMM_HOP_FANOUTS)]
+    runs = [(adj, "dw", H, F, {}) for H, F in SDDMM_HEADS] + [
+        (a, "hop dw", H, F, dict(hop=f"gat-{label}", edges=a.num_edges))
+        for label, a, (H, F) in zip(hop_names(len(hops)), hops, SDDMM_HOP_HEADS)
+    ]
+    for a, what, H, F, where in runs:
+        n_dst, n_src, e = a.num_dst_nodes, a.num_src_nodes, a.num_edges
+        g32 = torch.randn(n_dst, H, F, generator=gen, device=dev)
+        x32 = torch.randn(n_src, H, F, generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{where.get('hop', 'full')} H={H} F={F} {str(dtype).removeprefix('torch.')}"
+            g, x = g32.to(dtype), x32.to(dtype)
+            check_cases(results, (
+                ("sddmm_heads", what, sddmm_heads, sddmm_heads_plain, (a.dst, a.src, g, x),
+                 bounds.sddmm_heads_bound(n_dst, n_src, e, H, F, x.element_size()), None),
+            ), tag, dtype, H=H, F=F, **where)
+            log(f"phase1 bitwise repeat {tag} ({e} edges): SDDMM equal")
+        del g32, x32
+    del hops
     torch.cuda.empty_cache()
 
 
@@ -1083,17 +1131,18 @@ def phase2_orders(data: Data, dev, auto_ms: float) -> dict:
 
 def phase2_gat(data: Data, dev) -> tuple:
     """The GAT main path: full-graph training at arxiv scale. A layer runs
-    K3 (numerator) and K2 (denominator) forward; backward K3 (dh), K1 (the
-    source gather's VJP) and K2 (the destination gather's VJP); the
-    evaluation runs the forward again."""
+    K3 (numerator) and K2 (denominator) forward; backward K3 (dh), the
+    SDDMM (the attention weights' gradient), K1 (the source gather's VJP)
+    and K2 (the destination gather's VJP); the evaluation runs the forward
+    again."""
     cfg = arxiv_gat_config()
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "blocked_matvec": 0}
+    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "sddmm_heads": n, "blocked_matvec": 0}
     return train_phase("phase2-gat", cfg, data, dev, want, want_perm=True)
 
 
 def k1_only(count: int) -> dict:
-    return {"csr_spmm": count, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 0}
+    return {"csr_spmm": count, "segment_sum_csr": 0, "csr_spmm_heads": 0, "sddmm_heads": 0, "blocked_matvec": 0}
 
 
 def phase2_encoder(data: Data, dev) -> tuple:
@@ -1158,12 +1207,13 @@ def phase2_sampled_sage(data: Data, dev) -> tuple:
 def phase2_sampled_gat(data: Data, dev) -> tuple:
     """The GAT 2 x (8 x 32) on minibatches of 1024 seeds with fanouts [10,
     5]. A hop runs K3 (numerator) and K2 (denominator) forward; backward K3
-    (dh; the first hop's too, its input being ``lin``'s output), K1 (the
-    source gather's VJP) and K2 (the destination gather's VJP): K1 2, K2 4,
-    K3 4 a step. The full-graph evaluation adds K2 2 and K3 2."""
+    (dh; the first hop's too, its input being ``lin``'s output), the SDDMM,
+    K1 (the source gather's VJP) and K2 (the destination gather's VJP): K1
+    2, K2 4, K3 4, the SDDMM 2 a step. The full-graph evaluation adds K2 2
+    and K3 2."""
     cfg = arxiv_sampled_config("gat", GAT_FANOUTS, steps=20)
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "blocked_matvec": 0}
+    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "sddmm_heads": n, "blocked_matvec": 0}
     return train_phase("phase2-sampled-gat", cfg, data, dev, want, falling=True, want_perm=False)
 
 
@@ -1207,7 +1257,8 @@ def phase2_cluster(data: Data, dev) -> dict:
     n = arxiv_gcn_config().train.epochs * arxiv_gcn_config().model.num_layers
     out = {}
     for reorder, want in (
-        ("cluster", {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "blocked_matvec": 3 * n}),
+        ("cluster", {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "sddmm_heads": 0,
+                     "blocked_matvec": 3 * n}),
         ("auto", k1_only(3 * n)),
     ):
         cfg = arxiv_gcn_config()
@@ -1958,7 +2009,8 @@ def phase2_dist(data: Data, dev, finals: dict) -> dict:
         # a GAT layer: forward K2 (numerator and denominator together),
         # backward K2 (gather_dst's VJP) and K1 twice (incidence, send), and
         # the evaluation's forward K2
-        ("gat", arxiv_gat_config, {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "blocked_matvec": 0}),
+        ("gat", arxiv_gat_config,
+         {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "sddmm_heads": 0, "blocked_matvec": 0}),
         ("encoder_gcn", encoder_sgd_config, k1_only(30)),
     ):
         single = dist_config(make())
@@ -2163,6 +2215,7 @@ def main() -> int:
     phase1_gat(adj, dev, checks, by_graph)
     phase1_unweighted(adj, dev, checks)
     phase1_hop(dev, checks)
+    phase1_sddmm(adj, dev, checks)
     log(f"phase1-dist rows: {json.dumps(phase1_dist(ei, w, adj, dev))}")
     del adj
     torch.cuda.empty_cache()
@@ -2218,6 +2271,7 @@ def main() -> int:
         "csr_spmm": dict(F=256, what="fwd A@x", graph="relabelled"),
         "segment_sum_csr": dict(H=8, what="den [E,8]", graph="relabelled"),
         "csr_spmm_heads": dict(H=8, what="fwd num", graph="relabelled"),
+        "sddmm_heads": dict(H=8, F=8, what="dw"),
         "blocked_matvec": dict(F=256, what="fwd A@x R=256 float32"),
     }
     entries = []
@@ -2333,7 +2387,8 @@ def cards_dp_config() -> Config:
 
 CARDS_FITS = (
     ("gcn", arxiv_gcn_config, k1_only(45)),
-    ("gat", arxiv_gat_config, {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "blocked_matvec": 0}),
+    ("gat", arxiv_gat_config,
+     {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "sddmm_heads": 0, "blocked_matvec": 0}),
     ("encoder_gcn", encoder_sgd_config, k1_only(30)),
 )
 

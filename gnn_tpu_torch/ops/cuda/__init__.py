@@ -5,13 +5,16 @@ K1 :func:`csr_spmm` replaces ``gnn_tpu/ops/pallas/spmm.py::spmm_pallas``;
 K2 :func:`segment_sum_csr` replaces
 ``gnn_tpu/ops/pallas/segment.py::segment_sum_sorted``; K3
 :func:`csr_spmm_heads` replaces GAT's numerator reduction
-(``gnn_tpu/mp/gat.py:193-202``). The kernels build at first launch
-(``_build.load``), never at import.
+(``gnn_tpu/mp/gat.py:193-202``); :func:`sddmm_heads`, GAT's attention-weight
+gradient in K3's backward, replaces no TPU kernel (XLA's VJP there). The
+kernels build at first launch (``_build.load``), never at import.
 """
 
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain, spmm_csr
-from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain, spmm_heads_csr
+from gnn_tpu_torch.ops.cuda.spmm_heads import (
+    csr_spmm_heads, csr_spmm_heads_plain, sddmm_heads, sddmm_heads_plain, spmm_heads_csr,
+)
 
 __all__ = [
     "csr_spmm",
@@ -21,5 +24,7 @@ __all__ = [
     "segment_sum_csr_plain",
     "csr_spmm_heads",
     "csr_spmm_heads_plain",
+    "sddmm_heads",
+    "sddmm_heads_plain",
     "spmm_heads_csr",
 ]

@@ -50,6 +50,9 @@ _SIGNATURES = {
     # row_ptr, col, w, w_index, x, out, part, part_row, n_rows, n_edges, H, F, vec, stream
     "gnn_gat_spmm_f32": [_VOID] * 8 + [_INT] * 5 + [_VOID],
     "gnn_gat_spmm_bf16": [_VOID] * 8 + [_INT] * 5 + [_VOID],
+    # dst, src, g, x, dw, n_edges, H, F, vec, stream
+    "gnn_gat_sddmm_f32": [_VOID] * 5 + [_INT] * 4 + [_VOID],
+    "gnn_gat_sddmm_bf16": [_VOID] * 5 + [_INT] * 4 + [_VOID],
 }
 
 

@@ -1,5 +1,5 @@
-"""The least time an NVIDIA H100 could take for one call of K1, K2 or K3,
-from the call's shapes alone.
+"""The least time an NVIDIA H100 could take for one call of K1, K2, K3 or
+GAT's SDDMM, from the call's shapes alone.
 
 Plain arithmetic on integers: the measurement scripts (``chip_smoke.py``,
 ``tools/profile_gcn_step.py``) set a kernel's measured time beside these
@@ -25,7 +25,7 @@ from dataclasses import dataclass
 
 __all__ = [
     "H100_BYTES_PER_S", "H100_F32_FLOPS", "H100_BF16_FLOPS", "Bound",
-    "csr_spmm_bound", "segment_sum_bound", "csr_spmm_heads_bound", "blocked_matvec_bound",
+    "csr_spmm_bound", "segment_sum_bound", "csr_spmm_heads_bound", "sddmm_heads_bound", "blocked_matvec_bound",
     "blocked_layout_cost_ms", "exchange_bound",
 ]
 
@@ -101,6 +101,19 @@ def csr_spmm_heads_bound(
     [n_edges, H]; ``indexed`` adds the int32 ``w_index`` [n_edges]."""
     per_edge = H * _WEIGHT_BYTES + (_INDEX_BYTES if indexed else 0)
     return _gather_bound(n_rows, n_src, n_edges, H * F, itemsize, per_edge)
+
+
+def sddmm_heads_bound(n_dst: int, n_src: int, n_edges: int, H: int, F: int, itemsize: int) -> Bound:
+    """GAT's SDDMM: dw[e, h] = <g[dst[e], h], x[src[e], h]>, g [n_dst, H, F],
+    x [n_src, H, F], float32 dw [n_edges, H], int32 ``dst`` and ``src``. The
+    edges come in ``dst`` order, so a g row is a streamed read and only x's
+    rows count once per edge without reuse."""
+    fixed = 2 * n_edges * _INDEX_BYTES + n_edges * H * _WEIGHT_BYTES + n_dst * H * F * itemsize
+    return Bound(
+        bytes=fixed + n_src * H * F * itemsize,
+        noreuse_bytes=fixed + max(n_edges, n_src) * H * F * itemsize,
+        operations=2 * n_edges * H * F,
+    )
 
 
 def blocked_matvec_bound(n_rows: int, n_edges: int, F: int, itemsize: int) -> Bound:

@@ -7,8 +7,9 @@ the JAX package writes out as an [E, H * F] array and reduces with the Pallas
 segment sum. Forward runs the kernel over ``(row_ptr, src, w)``; backward runs
 the same kernel over the transpose CSR ``(t_row_ptr, dst[t_perm])`` for dh,
 reading the weight of transposed edge k in place at ``w[t_perm[k]]``
-(``w_index``), and the SDDMM dw[e, h] = <g[dst_e, h, :], x[src_e, h, :]> in
-plain torch (the JAX package computes it in XLA too).
+(``w_index``), and the SDDMM dw[e, h] = <g[dst_e, h, :], x[src_e, h, :]> on
+a kernel of its own (``csrc/gat_sddmm.cu``; the JAX package gets it from
+XLA's VJP).
 
 The kernel is the multi-head instance of the merge-path CSR reduction that
 K1 and K2 share (``csrc/csr_reduce.cuh``): rows of H * F features, a weight
@@ -21,7 +22,9 @@ float32 and the output has x's dtype.
 
 :func:`csr_spmm_heads` launches the kernel for CUDA tensors and takes
 :func:`csr_spmm_heads_plain` only for CPU tensors. It counts its launches in
-``csr_spmm_heads.launches``. :func:`spmm_heads_csr` runs in the span
+``csr_spmm_heads.launches``; :func:`sddmm_heads` likewise takes
+:func:`sddmm_heads_plain` only for CPU tensors and counts in
+``sddmm_heads.launches``. :func:`spmm_heads_csr` runs in the span
 ``agg.spmm_heads``, its backward in ``agg.spmm_heads.bwd`` and the SDDMM
 inside that in ``spmm_heads.dw``.
 """
@@ -35,7 +38,7 @@ import torch
 from gnn_tpu_torch.ops.cuda import _build, _launch
 from gnn_tpu_torch.utils.tracing import span
 
-__all__ = ["csr_spmm_heads", "csr_spmm_heads_plain", "spmm_heads_csr"]
+__all__ = ["csr_spmm_heads", "csr_spmm_heads_plain", "sddmm_heads", "sddmm_heads_plain", "spmm_heads_csr"]
 
 
 def _round_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -118,6 +121,63 @@ def csr_spmm_heads(
 csr_spmm_heads.launches = 0
 
 
+def sddmm_heads_plain(dst: torch.Tensor, src: torch.Tensor, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel: both rows gathered, multiplied and
+    summed in float32."""
+    return (g.float().index_select(0, dst.long()) * x.float().index_select(0, src.long())).sum(-1)
+
+
+def sddmm_heads(dst: torch.Tensor, src: torch.Tensor, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """dw[e, h] = sum_f g[dst[e], h, f] * x[src[e], h, f], float32 [E, H].
+
+    int32 ``dst``/``src`` [E], float32 or bfloat16 ``g`` [N_dst, H, F] and
+    ``x`` [N_src, H, F] of one dtype; products and sums in float32. The
+    caller guarantees ``dst`` in [0, N_dst) and ``src`` in [0, N_src), which
+    are not checked (a check would sync the device). The training path
+    passes an ``Adjacency``'s own arrays, built on the host.
+    """
+    if g.ndim != 3 or x.ndim != 3 or g.shape[1:] != x.shape[1:]:
+        raise ValueError(f"g and x must be [N, H, F] of one (H, F), got {tuple(g.shape)} and {tuple(x.shape)}")
+    for name, t in (("dst", dst), ("src", src)):
+        if t.dtype != torch.int32 or t.ndim != 1:
+            raise ValueError(f"{name} must be a 1-D int32 tensor, got {t.dtype} {tuple(t.shape)}")
+    if dst.numel() != src.numel():
+        raise ValueError(f"dst and src must have one length, got {dst.numel()} and {src.numel()}")
+    if x.device.type == "cpu":
+        return sddmm_heads_plain(dst, src, g, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"sddmm_heads runs on CUDA or CPU tensors, got {x.device}")
+    _launch.check_index("dst", dst, x.device)
+    _launch.check_index("src", src, x.device)
+    if g.device != x.device:
+        raise ValueError(f"g is on {g.device}, expected {x.device}")
+    if g.dtype != x.dtype:
+        raise ValueError(f"g and x must have one dtype, got {g.dtype} and {x.dtype}")
+    (n_dst, H, F), n_src = g.shape, x.shape[0]
+    g2 = g.view(n_dst, H * F) if g.is_contiguous() else g
+    x2 = x.view(n_src, H * F) if x.is_contiguous() else x
+    _launch.check_features("g", g2)
+    suffix = _launch.check_features("x", x2)
+    n_edges = dst.numel()
+    if n_edges * H * F == 0:
+        return torch.zeros((n_edges, H), dtype=torch.float32, device=x.device)
+    dw = torch.empty((n_edges, H), dtype=torch.float32, device=x.device)
+    # F % 4 == 0 keeps the four features of a vector load in one head
+    vec = int(F % 4 == 0 and _launch.vector_path(g2, x2))
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"gnn_gat_sddmm_{suffix}")(
+            dst.data_ptr(), src.data_ptr(), g.data_ptr(), x.data_ptr(), dw.data_ptr(),
+            n_edges, H, F, vec, _launch.stream(x.device),
+        )
+    _launch.raise_on_error("sddmm_heads", rc)
+    sddmm_heads.launches += 1
+    return dw
+
+
+sddmm_heads.launches = 0
+
+
 class _SpmmHeads(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, adj):
@@ -138,10 +198,7 @@ class _SpmmHeads(torch.autograd.Function):
                 # a span of its own around the SDDMM: the benchmark's
                 # sddmm_ms and tools/profile_gcn_step.py read it
                 with span("spmm_heads.dw"):
-                    dw = (
-                        g.float().index_select(0, adj.dst.long())
-                        * x.float().index_select(0, adj.src.long())
-                    ).sum(-1)
+                    dw = sddmm_heads(adj.dst, adj.src, g, x)
         return dx, dw, None
 
 

@@ -1,5 +1,5 @@
 """The bounds module (``gnn_tpu_torch.ops.cuda.bounds``): the least time an
-H100 could take for a call of K1, K2 or K3, from its shapes.
+H100 could take for a call of K1, K2, K3 or GAT's SDDMM, from its shapes.
 
 The expected figures are counted by hand at ogbn-arxiv scale (N = 169,343
 nodes, E = 2,478,219 edges with self loops): each input and output once
@@ -42,6 +42,23 @@ def test_k3_bound_at_arxiv_scale(H, F, itemsize, mb, ms, noreuse_ms):
     # the transpose also reads the int32 w_index once
     t = bounds.csr_spmm_heads_bound(N, N, E, H, F, itemsize, indexed=True)
     assert (t.bytes - b.bytes, t.noreuse_bytes - b.noreuse_bytes, t.operations) == (4 * E, 4 * E, b.operations)
+
+
+@pytest.mark.parametrize(
+    "H,F,itemsize,mb,ms,noreuse_ms",
+    [(8, 8, 4, 185.8, 0.0555, 0.2319), (1, 40, 4, 83.9, 0.0251, 0.1353), (8, 8, 2, 142.5, 0.0425, 0.1308)],
+)
+def test_sddmm_bound_at_arxiv_scale(H, F, itemsize, mb, ms, noreuse_ms):
+    """GAT's SDDMM: int32 dst and src, float32 dw [E, H], g and x once; without
+    reuse every edge reads its x row (g's rows come in dst order)."""
+    b = bounds.sddmm_heads_bound(N, N, E, H, F, itemsize)
+    fixed = 2 * COL + 4 * E * H + _feat(N, H * F, itemsize)
+    assert b.bytes == fixed + _feat(N, H * F, itemsize)
+    assert b.noreuse_bytes == fixed + _feat(E, H * F, itemsize)
+    assert b.operations == 2 * E * H * F
+    assert b.bytes / 1e6 == pytest.approx(mb, abs=0.05)
+    assert b.bound_ms == pytest.approx(ms, abs=5e-4) and b.bound_by == "bytes"
+    assert b.noreuse_ms == pytest.approx(noreuse_ms, abs=5e-4)
 
 
 @pytest.mark.parametrize(

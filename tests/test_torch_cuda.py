@@ -16,7 +16,7 @@ from gnn_tpu_torch import graphs as tg
 from gnn_tpu_torch import ops as tops
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
-from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain
+from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain, sddmm_heads, sddmm_heads_plain
 
 
 @pytest.fixture
@@ -273,27 +273,99 @@ def test_spmm_heads_rejects_bad_arguments(cuda_device):
         csr_spmm_heads(rp, col, w.cpu(), x)
 
 
+# (H, F) of the SDDMM's card tests: the GAT cells' two layers (8, 8) and
+# (1, 40), the scalar path (3, 5) and (4, 6), and the 8 x 32 of chip_smoke.py
+_SDDMM_HEADS = ((8, 8), (1, 40), (3, 5), (4, 6), (8, 32))
+
+
+def _check_sddmm(dst, src, g, x):
+    """GAT's SDDMM on the card against its plain version, twice (bitwise
+    equal: no atomics), one launch a call where there are edges. Both sum
+    float32 products of the same values in another order: rtol=atol=1e-5."""
+    before = sddmm_heads.launches
+    got = sddmm_heads(dst, src, g, x)
+    assert torch.equal(got, sddmm_heads(dst, src, g, x))
+    assert got.dtype == torch.float32 and got.shape == (dst.numel(), g.shape[1])
+    torch.testing.assert_close(got, sddmm_heads_plain(dst, src, g, x), rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert sddmm_heads.launches - before == (2 if dst.numel() else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["power-law"] + list(_SKEWED_DEGREES))
+def test_sddmm_heads_matches_plain_version_on_card(cuda_device, dtype, layout):
+    """The SDDMM over the GAT adjacency of a power-law graph (where a
+    misaligned g and x also take the scalar path) and over the hand-made
+    CSRs above: a 60,000-edge hub, rows on tile boundaries, empty rows, no
+    edges."""
+    rng = np.random.default_rng(3)
+    as_dev = lambda a: torch.from_numpy(a).to(cuda_device)
+    if layout == "power-law":
+        adj = _attention_graph(cuda_device)
+        dst, src, n_dst, n_src = adj.dst, adj.src, adj.num_dst_nodes, adj.num_dst_nodes
+    else:
+        deg = np.asarray(_SKEWED_DEGREES[layout])
+        n_dst, n_src = deg.size, 1000
+        dst = as_dev(np.repeat(np.arange(n_dst), deg).astype(np.int32))
+        src = as_dev(rng.integers(0, n_src, dst.numel()).astype(np.int32))
+    for H, F in _SDDMM_HEADS:
+        g = as_dev(rng.normal(size=(n_dst, H, F)).astype(np.float32)).to(dtype)
+        x = as_dev(rng.normal(size=(n_src, H, F)).astype(np.float32)).to(dtype)
+        _check_sddmm(dst, src, g, x)
+        if layout == "power-law" and F % 4 == 0:
+            gm = _misaligned(n_dst, H * F, dtype, cuda_device).view(n_dst, H, F)
+            xm = _misaligned(n_src, H * F, dtype, cuda_device).view(n_src, H, F)
+            _check_sddmm(dst, src, gm, xm)
+
+
+@pytest.mark.gpu
+def test_sddmm_heads_rejects_bad_arguments(cuda_device):
+    dst = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    src = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    g = torch.randn(2, 4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous 2-D"):
+        sddmm_heads(dst, src, g.transpose(1, 2).contiguous().transpose(1, 2), g)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sddmm_heads(dst, src, g.half(), g.half())
+    with pytest.raises(ValueError, match="one dtype"):
+        sddmm_heads(dst, src, g.bfloat16(), g)
+    with pytest.raises(ValueError, match="g is on cpu"):
+        sddmm_heads(dst, src, g.cpu(), g)
+    with pytest.raises(ValueError, match="src is on cpu"):
+        sddmm_heads(dst, src.cpu(), g, g)
+    with pytest.raises(ValueError, match="dst must be a 1-D int32"):
+        sddmm_heads(dst.long(), src, g, g)
+    with pytest.raises(ValueError, match="one length"):
+        sddmm_heads(dst, src[:1], g, g)
+    with pytest.raises(ValueError, match="one \\(H, F\\)"):
+        sddmm_heads(dst, src, g[:, :2], g)
+
+
 @pytest.mark.gpu
 def test_gat_on_card_matches_cpu(cuda_device):
-    """GATConv forward and gradients on the card (K1, K2, K3) against the
-    same layer on the CPU (plain versions), and the launches of each."""
-    from gnn_tpu_torch.mp import GATConv
+    """A training step of the 2-layer GAT (4 heads x 8, then 1 head over 4
+    classes) on the card (K1, K2, K3 and the SDDMM) against the same model on
+    the CPU (plain versions): output, input gradient and every parameter's
+    gradient, and the launches of each, the SDDMM once a layer."""
+    from gnn_tpu_torch.models import GAT
 
     adj = _attention_graph("cpu", n=2000)
     x = torch.randn(adj.num_dst_nodes, 16)
-    conv_cpu = GATConv(16, 8, heads=4, generator=torch.Generator().manual_seed(0))
-    conv_gpu = GATConv(16, 8, heads=4).to(cuda_device)
-    conv_gpu.load_state_dict(conv_cpu.state_dict())
-    before = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    model_cpu = GAT(16, 8, 4, heads=4, dropout=0.0, generator=torch.Generator().manual_seed(0))
+    model_gpu = GAT(16, 8, 4, heads=4, dropout=0.0).to(cuda_device)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads)
+    before = tuple(c.launches for c in counters)
     outs = []
-    for conv, a, xx in ((conv_cpu, adj, x), (conv_gpu, adj.to(cuda_device), x.to(cuda_device))):
+    for model, a, xx in ((model_cpu, adj, x), (model_gpu, adj.to(cuda_device), x.to(cuda_device))):
         xx = xx.clone().requires_grad_()
-        out = conv(xx, a)
+        out = model(xx, a)
         (out ** 2).sum().backward()
-        outs.append((out.detach().cpu(), xx.grad.cpu(), [p.grad.cpu() for p in conv.parameters()]))
+        outs.append((out.detach().cpu(), xx.grad.cpu(), [p.grad.cpu() for p in model.parameters()]))
     torch.cuda.synchronize()
-    after = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
-    assert tuple(b - a for a, b in zip(before, after)) == (1, 2, 2)
+    after = tuple(c.launches for c in counters)
+    assert tuple(b - a for a, b in zip(before, after)) == (2, 4, 4, 2)
     (o_c, dx_c, g_c), (o_g, dx_g, g_g) = outs
     torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-4)
@@ -456,7 +528,7 @@ def test_forward_sampled_on_card_matches_cpu(cuda_device, name):
     (the first hop's input is gathered data); GAT, per hop, K3 forward and
     dh (the first hop's too: its input is ``lin``'s output), K2 for the
     denominator and for the destination gather's VJP, K1 for the source
-    gather's VJP."""
+    gather's VJP, and the SDDMM."""
     from gnn_tpu_torch.graphs import NeighborSampler
     from gnn_tpu_torch.models import GAT, GIN, GraphSAGE
 
@@ -467,17 +539,18 @@ def test_forward_sampled_on_card_matches_cpu(cuda_device, name):
         "gat": lambda gen: GAT(12, 8, 4, heads=4, dropout=0.0, generator=gen),
         "gin": lambda gen: GIN(12, 32, 4, num_layers=2, generator=gen),
     }[name]
-    want = {"sage": (3, 0, 0), "sage-max": (0, 0, 0), "gat": (2, 4, 4), "gin": (3, 0, 0)}[name]
+    want = {"sage": (3, 0, 0, 0), "sage-max": (0, 0, 0, 0), "gat": (2, 4, 4, 2), "gin": (3, 0, 0, 0)}[name]
     sampler = NeighborSampler(data, [5, 3])
     nodes, adjs = sampler.sample(torch.Generator().manual_seed(0), torch.arange(64))
     cpu = make(torch.Generator().manual_seed(0))
     gpu = make(None).to(cuda_device)
     gpu.load_state_dict(cpu.state_dict())
     on_card = sampler.to(cuda_device)
-    before = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads)
+    before = tuple(c.launches for c in counters)
     out_gpu = gpu.forward_sampled(data.x[nodes].to(cuda_device), on_card.adjacencies(64))
     out_gpu.square().sum().backward()
-    after = (csr_spmm.launches, segment_sum_csr.launches, csr_spmm_heads.launches)
+    after = tuple(c.launches for c in counters)
     assert tuple(a - b for a, b in zip(after, before)) == want
     out_cpu = cpu.forward_sampled(data.x[nodes], adjs)
     out_cpu.square().sum().backward()

@@ -255,6 +255,70 @@ def test_spmm_heads_one_head_is_csr_spmm(rng):
     torch.testing.assert_close(got[:, 0, :], csr_spmm_plain(rp, col, w, x), rtol=1e-6, atol=1e-6)
 
 
+def _sddmm_graph(rng, graph, n=200, e=2500):
+    """The port's adjacency of a random multigraph whose destinations skip
+    every fifth node (empty rows, a row past the last edge among them), or
+    of no edges."""
+    if graph == "no-edges":
+        return tg.build_adjacency(np.zeros((2, 0), np.int64), num_nodes=n)
+    dst = rng.choice(np.flatnonzero(np.arange(n) % 5 != 4), e)
+    adj = tg.build_adjacency(np.stack([rng.integers(0, n, e), dst]), num_nodes=n)
+    deg = np.diff(adj.row_ptr.numpy())
+    assert (deg[4::5] == 0).all() and deg[-1] == 0 and (deg[:4] > 0).all()
+    return adj
+
+
+@pytest.mark.parametrize("graph", ["empty-rows", "no-edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,F", [(8, 8), (1, 40), (3, 5), (4, 6)])
+def test_sddmm_heads_matches_float64_einsum(rng, H, F, dtype, graph):
+    """GAT's attention-weight gradient dw[e, h] = <g[dst_e, h], x[src_e, h]>:
+    the plain version, the wrapper on CPU tensors and the dw of
+    spmm_heads_csr's backward against an einsum in float64 over the same
+    (bf16-exact) values; rtol=atol=1e-5 for float32 sums of F products."""
+    from gnn_tpu_torch.ops.cuda.spmm_heads import sddmm_heads, sddmm_heads_plain, spmm_heads_csr
+
+    adj = _sddmm_graph(rng, graph)
+    n, E = adj.num_dst_nodes, adj.num_edges
+    g = torch.from_numpy(rng.normal(size=(n, H, F)).astype(np.float32)).to(dtype)
+    x = torch.from_numpy(rng.normal(size=(n, H, F)).astype(np.float32)).to(dtype)
+    want = torch.einsum("ehf,ehf->eh", g.double()[adj.dst.long()], x.double()[adj.src.long()])
+    before = sddmm_heads.launches
+    for fn in (sddmm_heads_plain, sddmm_heads):
+        got = fn(adj.dst, adj.src, g, x)
+        assert got.dtype == torch.float32 and got.shape == (E, H)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+    assert sddmm_heads.launches == before
+    w = torch.from_numpy(rng.random((E, H)).astype(np.float32)).requires_grad_()
+    out = spmm_heads_csr(adj, x, w)
+    assert out.dtype == dtype
+    out.backward(g)
+    assert w.grad.dtype == torch.float32
+    torch.testing.assert_close(w.grad.double(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_sddmm_heads_rejects_bad_arguments(rng):
+    """The CPU wrapper checks shapes and index types before it takes the
+    plain version."""
+    from gnn_tpu_torch.ops.cuda.spmm_heads import sddmm_heads
+
+    adj = _sddmm_graph(rng, "empty-rows", e=300)
+    n = adj.num_dst_nodes
+    g, x = torch.randn(n, 4, 8), torch.randn(n, 4, 8)
+    with pytest.raises(ValueError, match="one length"):
+        sddmm_heads(adj.dst, adj.src[:-1], g, x)
+    with pytest.raises(ValueError, match="one \\(H, F\\)"):
+        sddmm_heads(adj.dst, adj.src, torch.randn(n, 4, 6), x)
+    with pytest.raises(ValueError, match="one \\(H, F\\)"):
+        sddmm_heads(adj.dst, adj.src, g[:, 0], x)
+    with pytest.raises(ValueError, match="dst must be a 1-D int32"):
+        sddmm_heads(adj.dst.long(), adj.src, g, x)
+    with pytest.raises(ValueError, match="src must be a 1-D int32"):
+        sddmm_heads(adj.dst, adj.src.long(), g, x)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        sddmm_heads(adj.dst.to("meta"), adj.src.to("meta"), g.to("meta"), x.to("meta"))
+
+
 def test_spmm_heads_bf16_rounds_weights_like_jax(rng):
     """bf16 x: the weights are rounded to bf16 (ex_num.astype(h.dtype) in
     gnn_tpu/mp/gat.py:199), the sums are float32, the output bf16."""
