@@ -65,6 +65,12 @@ gradient in K3's backward (``sddmm_heads``, ``csrc/gat_sddmm.cu``) against
 the expression it replaced, over the whole graph at (H, F) = (8, 8) and
 (1, 40) (the benchmark's GAT) and (8, 32), and over the benchmark's sampled
 hops (batch 1024, fanouts [25, 10]) at (8, 8) outer and (1, 40) inner.
+Phase 1-gatv2 holds GATv2's attention score (``gatv2_score`` and
+``gatv2_score_bwd``, ``csrc/gatv2_score.cu``, float32) against their plain
+versions over the whole graph at (H, F) = (8, 8) and (1, 40) (the
+benchmark's GATv2), (3, 5) and (4, 6) (the scalar path), and at (8, 8) with
+features off the vector-load boundary; the backward's three outputs are
+compared as one vector.
 Phase 1-relabel builds the power-law graph
 again with ``reorder=True``, the degree-bucket node order that ``fit``'s
 default ``train.reorder='auto'`` trains in, and holds K1 forward and dx at F
@@ -83,7 +89,8 @@ again with ``train.reorder`` 'false' (ids kept) and 'true', printing the
 step time of each order; every full-graph phase prints whether ``fit``'s
 adjacency carried a ``perm`` and checks it;
 phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
-classes) for 5 epochs there; phase 2-cluster trains the GCN on the clustered
+classes) for 5 epochs there, and phase 2-gatv2 the GATv2 of the benchmark
+(2 layers, 8 heads x 8, then 1 head); phase 2-cluster trains the GCN on the clustered
 graph twice with the same seeds, with ``train.reorder='cluster'`` (the
 blocked layout) and ``'auto'`` (the CSR). Phases 2-encoder, 2-sage and 2-gin
 train, 5 epochs each on the power-law graph, the reference's flagship
@@ -176,6 +183,7 @@ from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
 from gnn_tpu_torch.ops.cuda import _build, bounds
+from gnn_tpu_torch.ops.cuda.gatv2_score import gatv2_score, gatv2_score_bwd, gatv2_score_bwd_plain, gatv2_score_plain
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
 from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain, sddmm_heads, sddmm_heads_plain
@@ -233,6 +241,15 @@ KERNELS = {
         source="gnn_tpu_torch/csrc/gat_sddmm.cu",
         replaces="none: XLA's VJP of gnn_tpu/mp/gat.py:193-202",
     ),
+    # GATv2's attention score, forward and backward
+    "gatv2_score": dict(
+        source="gnn_tpu_torch/csrc/gatv2_score.cu",
+        replaces="none: the JAX package has no GATv2",
+    ),
+    "gatv2_score_bwd": dict(
+        source="gnn_tpu_torch/csrc/gatv2_score.cu",
+        replaces="none: the JAX package has no GATv2",
+    ),
     # A composition, not a kernel of its own: torch.bmm (the library) over the
     # dense blocks, then K1 over the remainder CSR
     "blocked_matvec": dict(
@@ -243,7 +260,8 @@ KERNELS = {
 }
 COUNTERS = {
     "csr_spmm": csr_spmm, "segment_sum_csr": segment_sum_csr, "csr_spmm_heads": csr_spmm_heads,
-    "sddmm_heads": sddmm_heads, "blocked_matvec": blocked_matvec,
+    "sddmm_heads": sddmm_heads, "gatv2_score": gatv2_score, "gatv2_score_bwd": gatv2_score_bwd,
+    "blocked_matvec": blocked_matvec,
 }
 
 
@@ -668,16 +686,17 @@ def phase1_unweighted(adj, dev, results) -> None:
         torch.cuda.empty_cache()
 
 
-def check_cases(results, cases, tag: str, dtype, **shape) -> dict:
+def check_cases(results, cases, tag: str, dtype, check=compare, **shape) -> dict:
     """Each case (kernel name, what, kernel, plain version, args, bound,
-    library call or None): the kernel against its plain version and a second
-    call of itself, its time, the plain version's and, in float32, the
-    library call's, as one phase-1 row. Returns the kernel's ms by (name,
-    what)."""
+    library call or None): the kernel against its plain version by
+    ``check(label, got, want, dtype)``, which returns the max abs error, and
+    against a second call of itself, its time, the plain version's and, in
+    float32, the library call's, as one phase-1 row. Returns the kernel's ms
+    by (name, what)."""
     times = {}
     for name, what, kernel, plain, args, bound, library in cases:
         got = kernel(*args)
-        err = compare(f"{name} {what} {tag}", got, plain(*args), dtype)
+        err = check(f"{name} {what} {tag}", got, plain(*args), dtype)
         check_repeat(f"{name} {what} {tag}", kernel, args, got)
         timed = library is not None and dtype == torch.float32
         lib = library_ms(f"{name} {what} {tag}", library, got) if timed else None
@@ -1026,6 +1045,60 @@ def arxiv_sampled_config(model: str, fanouts, steps: int, host_features: bool = 
     return cfg
 
 
+# (H, F) of phase 1-gatv2: the benchmark's GATv2 layers and the scalar path
+GATV2_HEADS = ((8, 8), (1, 40), (3, 5), (4, 6))
+
+
+def phase1_gatv2(adj, dev, results) -> None:
+    """GATv2's attention score forward and backward against their plain
+    versions (the expressions the kernels replace, which write [E, H, F]
+    arrays) over the whole graph's GAT adjacency, float32, at
+    ``GATV2_HEADS`` and at (8, 8) off the vector-load boundary. No one
+    library call computes either."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, e = adj.num_dst_nodes, adj.num_edges
+    csr = (adj.row_ptr, adj.src, adj.t_row_ptr, adj.t_perm, adj.t_col)
+
+    def bwd(plain):
+        def call(ds, h_src, h_dst, att):
+            out = (gatv2_score_bwd_plain(ds, h_src, h_dst, att, *csr[:2]) if plain
+                   else gatv2_score_bwd(ds, h_src, h_dst, att, *csr))
+            return torch.cat([t.flatten() for t in out])  # dh_src, dh_dst, datt
+        return call
+
+    runs = [(H, F, True) for H, F in GATV2_HEADS] + [(8, 8, False)]
+    for H, F, aligned in runs:
+        make = (lambda: torch.randn(n, H, F, generator=gen, device=dev)) if aligned else (
+            lambda: (torch.randn(n * H * F + 1, generator=gen, device=dev)[1:].view(n, H, F)))
+        h_src, h_dst = make(), make()
+        att = torch.randn(H, F, generator=gen, device=dev)
+        ds = torch.randn(e, H, generator=gen, device=dev)  # signed, as a softmax's gradient
+        sizes = (n * H * F, n * H * F, H * F)
+
+        def each_output(label, got, want, dtype):
+            # the sums over a row (21,305 edges at the hub) cancel, so one
+            # entry can keep little of its terms' size and its float32
+            # rounding in two orders (2e-3 on an H100) is larger than an
+            # entry's tolerance: each of dh_src, dh_dst and datt is held to
+            # its relative Frobenius error instead
+            for part, g, w in zip(("dh_src", "dh_dst", "datt"), got.split(sizes), want.split(sizes)):
+                compare_norm(f"{label} {part}", g, w)
+            return (got - want).abs().max().item()
+
+        tag = f"full H={H} F={F}" + ("" if aligned else " misaligned")
+        check_cases(results, (
+            ("gatv2_score", "s", gatv2_score, gatv2_score_plain, (h_src, h_dst, att, adj.src, adj.dst),
+             bounds.gatv2_score_bound(n, n, e, H, F), None),
+        ), tag, torch.float32, H=H, F=F, aligned=aligned)
+        check_cases(results, (
+            ("gatv2_score_bwd", "ds", bwd(False), bwd(True), (ds, h_src, h_dst, att),
+             bounds.gatv2_score_bwd_bound(n, n, e, H, F), None),
+        ), tag, torch.float32, check=each_output, H=H, F=F, aligned=aligned)
+        log(f"phase1 bitwise repeat {tag} ({e} edges): GATv2 score forward and backward equal")
+        del h_src, h_dst, att, ds
+    torch.cuda.empty_cache()
+
+
 def read_counters() -> dict:
     return {name: counter.launches for name, counter in COUNTERS.items()}
 
@@ -1043,6 +1116,7 @@ def train_phase(
     ``fit`` returned. The step that ``fit`` builds is captured too, to
     print whether its adjacency was relabelled (``perm`` present) and, where
     ``want_perm`` is given, to check it."""
+    want = {**dict.fromkeys(COUNTERS, 0), **want}  # a counter not named launches nothing
     in_eval = dict.fromkeys(COUNTERS, 0)
     originals = {"evaluate": loop.evaluate, "host_evaluate": loop.host_evaluate}
     build_step, steps = loop.build_step, []
@@ -1141,8 +1215,32 @@ def phase2_gat(data: Data, dev) -> tuple:
     return train_phase("phase2-gat", cfg, data, dev, want, want_perm=True)
 
 
+def arxiv_gatv2_config(epochs: int = 5) -> Config:
+    """The benchmark's GATv2 (gnnbench/configs/gatv2-arxiv.json): 2 layers,
+    8 heads x 8, then 1 head over the 40 classes, dropout 0.6, Adam lr
+    0.005 with L2 5e-4."""
+    cfg = Config()
+    cfg.model.name, cfg.model.num_layers, cfg.model.hidden, cfg.model.heads = "gatv2", 2, 8, 8
+    cfg.model.dropout = 0.6
+    cfg.optim.name, cfg.optim.lr, cfg.optim.weight_decay = "adam", 0.005, 5e-4
+    cfg.train.epochs, cfg.train.eval_every = epochs, 1
+    return cfg
+
+
+def phase2_gatv2(data: Data, dev) -> tuple:
+    """The GATv2 path: full-graph training at arxiv scale. A layer runs the
+    score forward, K3 (numerator) and K2 (denominator); backward the score's
+    backward, K3 (dh) and the SDDMM; the evaluation runs the forward again.
+    No K1: the score gathers nothing whose VJP would run it."""
+    cfg = arxiv_gatv2_config()
+    n = cfg.train.epochs * cfg.model.num_layers
+    want = {"segment_sum_csr": 2 * n, "csr_spmm_heads": 3 * n, "sddmm_heads": n, "gatv2_score": 2 * n,
+            "gatv2_score_bwd": n}
+    return train_phase("phase2-gatv2", cfg, data, dev, want, want_perm=True)
+
+
 def k1_only(count: int) -> dict:
-    return {"csr_spmm": count, "segment_sum_csr": 0, "csr_spmm_heads": 0, "sddmm_heads": 0, "blocked_matvec": 0}
+    return {**dict.fromkeys(COUNTERS, 0), "csr_spmm": count}
 
 
 def phase2_encoder(data: Data, dev) -> tuple:
@@ -2216,6 +2314,7 @@ def main() -> int:
     phase1_unweighted(adj, dev, checks)
     phase1_hop(dev, checks)
     phase1_sddmm(adj, dev, checks)
+    phase1_gatv2(adj, dev, checks)
     log(f"phase1-dist rows: {json.dumps(phase1_dist(ei, w, adj, dev))}")
     del adj
     torch.cuda.empty_cache()
@@ -2242,7 +2341,7 @@ def main() -> int:
     runs = {"gcn": phase2(data, dev)}
     runs.update({f"gcn-reorder-{k}": v for k, v in phase2_orders(data, dev, runs["gcn"][2]).items()})
     runs.update({
-        "gat": phase2_gat(data, dev), "encoder_gcn": phase2_encoder(data, dev),
+        "gat": phase2_gat(data, dev), "gatv2": phase2_gatv2(data, dev), "encoder_gcn": phase2_encoder(data, dev),
         "sage": phase2_sage(data, dev), "gin": phase2_gin(data, dev),
     })
     finals = {}
@@ -2272,6 +2371,8 @@ def main() -> int:
         "segment_sum_csr": dict(H=8, what="den [E,8]", graph="relabelled"),
         "csr_spmm_heads": dict(H=8, what="fwd num", graph="relabelled"),
         "sddmm_heads": dict(H=8, F=8, what="dw"),
+        "gatv2_score": dict(H=8, F=8, what="s", aligned=True),
+        "gatv2_score_bwd": dict(H=8, F=8, what="ds", aligned=True),
         "blocked_matvec": dict(F=256, what="fwd A@x R=256 float32"),
     }
     entries = []

@@ -15,7 +15,8 @@ sum_j ex_ij h_j runs on K3 (``ops/cuda/spmm_heads.py``) without the
 [E, H * F] message array, and the denominator sum_j ex_ij on K2. Dropout
 applies to the numerator's weights only. With the same dropout mask this
 equals the JAX package's non-flash path (softmax, dropout of alpha, sum)
-too, so the port has one path. On a node-partitioned
+too, so the port has one path, and from the scores on it is
+:func:`attend`, which GATv2Conv shares. On a node-partitioned
 :class:`~gnn_tpu_torch.parallel.DistGraph` (x in its padded layout) the
 layer is the JAX package's ``_forward_dist``: one exchange moves ``[h |
 a_src . h]``, the softmax is local to each destination's part, and the
@@ -45,7 +46,7 @@ from gnn_tpu_torch.ops.edge_agg import edge_aggregate_max
 from gnn_tpu_torch.ops.gather import gather_dst_edges, gather_src_edges
 from gnn_tpu_torch.ops.segment import segment_sum_edges
 
-__all__ = ["GATConv"]
+__all__ = ["GATConv", "attend"]
 
 
 def _segment_max_shift(adj: Adjacency, e: torch.Tensor) -> torch.Tensor:
@@ -57,8 +58,31 @@ def _segment_max_shift(adj: Adjacency, e: torch.Tensor) -> torch.Tensor:
     choice between ``edge_aggregate_max`` and ``segment_max``
     (``gnn_tpu/mp/gat.py:52-57``) is between two layouts of the same max."""
     m = edge_aggregate_max(e, adj.edge_agg_layouts()[0])
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))  # empty segments
+    m = torch.nan_to_num(m, nan=0.0, posinf=0.0, neginf=0.0)  # empty segments: -inf -> 0
     return m.index_select(0, adj.dst.long())
+
+
+def attend(conv, adj: Adjacency, e: torch.Tensor, h: torch.Tensor, *, generator=None, return_attention=False):
+    """The attention's aggregation from the edge scores on, which GATConv
+    and GATv2Conv share: the per-destination shift, ``exp``, dropout of the
+    numerator's weights, the numerator sum_j ex_ij h_j on K3, the
+    denominator on K2, the heads concatenated or averaged (``conv.concat``)
+    and ``conv.bias``. ``e`` [E, H] float32 scores in the adjacency's edge
+    order, ``h`` [N_src, H, F] the messages. Returns the output [N_dst, H *
+    F] or [N_dst, F]; with ``return_attention`` also alpha [E, H] (after
+    dropout in training mode)."""
+    n_out, H, F = adj.num_dst_nodes, h.shape[1], h.shape[2]
+    ex = torch.exp(e - _segment_max_shift(adj, e))  # [E, H]
+    ex_num = dropout_fn(ex, conv.dropout_rate, training=conv.training, generator=generator)
+    num = spmm_heads_csr(adj, h, ex_num).float()  # [N_dst, H, F]
+    den = segment_sum_edges(ex, adj).clamp_min(1e-16)  # [N_dst, H]
+    out = num / den[:, :, None]
+    out = out.reshape(n_out, H * F) if conv.concat else out.mean(dim=1)
+    if conv.bias is not None:
+        out = out + conv.bias.to(out.dtype)
+    if return_attention:
+        return out, ex_num / den.index_select(0, adj.dst.long())
+    return out
 
 
 class GATConv(MessagePassing):
@@ -127,17 +151,7 @@ class GATConv(MessagePassing):
             alpha_src.to(mdt), adj
         ).float()
         e = leaky_relu(e, self.negative_slope)
-        ex = torch.exp(e - _segment_max_shift(adj, e))  # [E, H]
-        ex_num = dropout_fn(ex, self.dropout_rate, training=self.training, generator=generator)
-        num = spmm_heads_csr(adj, h.to(mdt), ex_num).float()  # [N_dst, H, F]
-        den = segment_sum_edges(ex, adj).clamp_min(1e-16)  # [N_dst, H]
-        out = num / den[:, :, None]
-        out = out.reshape(n_out, H * F) if self.concat else out.mean(dim=1)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
-        if return_attention:
-            return out, ex_num / den.index_select(0, adj.dst.long())
-        return out
+        return attend(self, adj, e, h.to(mdt), generator=generator, return_attention=return_attention)
 
     def _forward_dist(self, x: torch.Tensor, dist, *, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Port of ``gnn_tpu/mp/gat.py::_forward_dist`` (flash style, scores

@@ -6,10 +6,15 @@ K2 :func:`segment_sum_csr` replaces
 ``gnn_tpu/ops/pallas/segment.py::segment_sum_sorted``; K3
 :func:`csr_spmm_heads` replaces GAT's numerator reduction
 (``gnn_tpu/mp/gat.py:193-202``); :func:`sddmm_heads`, GAT's attention-weight
-gradient in K3's backward, replaces no TPU kernel (XLA's VJP there). The
-kernels build at first launch (``_build.load``), never at import.
+gradient in K3's backward, replaces no TPU kernel (XLA's VJP there), nor do
+:func:`gatv2_score` and :func:`gatv2_score_bwd`, GATv2's fused attention
+score and its gradient (the JAX package has no GATv2). The kernels build at
+first launch (``_build.load``), never at import.
 """
 
+from gnn_tpu_torch.ops.cuda.gatv2_score import (
+    gatv2_score, gatv2_score_bwd, gatv2_score_bwd_plain, gatv2_score_edges, gatv2_score_plain,
+)
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain, spmm_csr
 from gnn_tpu_torch.ops.cuda.spmm_heads import (
@@ -27,4 +32,9 @@ __all__ = [
     "sddmm_heads",
     "sddmm_heads_plain",
     "spmm_heads_csr",
+    "gatv2_score",
+    "gatv2_score_plain",
+    "gatv2_score_bwd",
+    "gatv2_score_bwd_plain",
+    "gatv2_score_edges",
 ]

@@ -38,6 +38,7 @@ _info: dict = {}
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 _SIGNATURES = {
     # row_ptr, col, w, x, out, part, part_row, n_rows, n_edges, F, vec, stream
     "gnn_csr_spmm_f32": [_VOID] * 7 + [_INT] * 4 + [_VOID],
@@ -53,6 +54,11 @@ _SIGNATURES = {
     # dst, src, g, x, dw, n_edges, H, F, vec, stream
     "gnn_gat_sddmm_f32": [_VOID] * 5 + [_INT] * 4 + [_VOID],
     "gnn_gat_sddmm_bf16": [_VOID] * 5 + [_INT] * 4 + [_VOID],
+    # dst, src, h_src, h_dst, att, s, n_edges, H, F, slope, vec, stream
+    "gnn_gatv2_score_f32": [_VOID] * 6 + [_INT] * 3 + [_FLOAT, _INT, _VOID],
+    # row_ptr, src, t_row_ptr, t_perm, t_col, ds, h_src, h_dst, att, dh_src, dh_dst, datt,
+    # part, part_row, datt_part, n_dst, n_src, n_edges, H, F, slope, vec, stream
+    "gnn_gatv2_score_bwd_f32": [_VOID] * 15 + [_INT] * 5 + [_FLOAT, _INT, _VOID],
 }
 
 

@@ -2,9 +2,12 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+
+_CURRENT = contextlib.nullcontext()
 
 _FEATURE_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Bytes of one 4-feature vector load: the kernels take the vector path only
@@ -45,8 +48,20 @@ def vector_path(*tensors: torch.Tensor) -> int:
     return int(ok)
 
 
+def on(device: torch.device):
+    """``torch.cuda.device(device)``, or one shared null context where
+    ``device`` is already the current card: a launch then spares the host
+    the guard's device switch and its way back."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(device)
+
+
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream, read without building
+    a ``torch.cuda.Stream`` object on every launch."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def reduce_scratch(lib, n_rows: int, n_edges: int, F: int, device: torch.device) -> tuple:

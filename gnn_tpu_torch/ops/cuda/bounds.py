@@ -1,5 +1,6 @@
-"""The least time an NVIDIA H100 could take for one call of K1, K2, K3 or
-GAT's SDDMM, from the call's shapes alone.
+"""The least time an NVIDIA H100 could take for one call of K1, K2, K3,
+GAT's SDDMM or GATv2's score (forward and backward), from the call's shapes
+alone.
 
 Plain arithmetic on integers: the measurement scripts (``chip_smoke.py``,
 ``tools/profile_gcn_step.py``) set a kernel's measured time beside these
@@ -25,7 +26,8 @@ from dataclasses import dataclass
 
 __all__ = [
     "H100_BYTES_PER_S", "H100_F32_FLOPS", "H100_BF16_FLOPS", "Bound",
-    "csr_spmm_bound", "segment_sum_bound", "csr_spmm_heads_bound", "sddmm_heads_bound", "blocked_matvec_bound",
+    "csr_spmm_bound", "segment_sum_bound", "csr_spmm_heads_bound", "sddmm_heads_bound", "gatv2_score_bound",
+    "gatv2_score_bwd_bound", "blocked_matvec_bound",
     "blocked_layout_cost_ms", "exchange_bound",
 ]
 
@@ -113,6 +115,38 @@ def sddmm_heads_bound(n_dst: int, n_src: int, n_edges: int, H: int, F: int, item
         bytes=fixed + n_src * H * F * itemsize,
         noreuse_bytes=fixed + max(n_edges, n_src) * H * F * itemsize,
         operations=2 * n_edges * H * F,
+    )
+
+
+def gatv2_score_bound(n_dst: int, n_src: int, n_edges: int, H: int, F: int) -> Bound:
+    """GATv2's score forward, float32: s[e, h] = <att[h], LeakyReLU(h_dst[dst[e],
+    h] + h_src[src[e], h])>, int32 ``dst`` and ``src``, s [n_edges, H]; 4
+    operations an edge, head and feature. As for the SDDMM, the edges come
+    in ``dst`` order and only h_src's rows count once per edge without
+    reuse."""
+    fixed = 2 * n_edges * _INDEX_BYTES + n_edges * H * _WEIGHT_BYTES + (n_dst + 1) * H * F * 4
+    return Bound(
+        bytes=fixed + n_src * H * F * 4,
+        noreuse_bytes=fixed + max(n_edges, n_src) * H * F * 4,
+        operations=4 * n_edges * H * F,
+    )
+
+
+def gatv2_score_bwd_bound(n_dst: int, n_src: int, n_edges: int, H: int, F: int) -> Bound:
+    """GATv2's score backward, float32: ds [n_edges, H], h_src, h_dst, att
+    and the edge list (int32 ``src`` and ``dst``, as the forward reads it)
+    in; dh_src, dh_dst, datt out; 8 operations an edge, head and feature.
+    The transpose order and the row offsets that the kernels walk are the
+    layout they chose, not what the function needs, and are not counted.
+    Without reuse each of its two passes gathers the other side's row, and
+    the pass by source reads ds again, per edge."""
+    W = H * F * 4
+    fixed = (n_edges * H * _WEIGHT_BYTES + 2 * W + 2 * n_edges * _INDEX_BYTES
+             + (n_src + n_dst) * W)  # the outputs dh_src, dh_dst and datt (2 W: att and datt)
+    return Bound(
+        bytes=fixed + (n_src + n_dst) * W,
+        noreuse_bytes=fixed + 2 * max(n_edges, n_src, n_dst) * W + n_edges * H * _WEIGHT_BYTES,
+        operations=8 * n_edges * H * F,
     )
 
 

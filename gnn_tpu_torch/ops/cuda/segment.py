@@ -41,7 +41,7 @@ def segment_sum_csr(row_ptr: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
     if n_rows == 0 or F == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(msg.device):
+    with _launch.on(msg.device):
         part, part_row = _launch.reduce_scratch(lib, n_rows, n_edges, F, msg.device)
         rc = getattr(lib, f"gnn_segment_sum_{suffix}")(
             row_ptr.data_ptr(), msg.data_ptr(), out.data_ptr(), part.data_ptr(),

@@ -59,7 +59,7 @@ def csr_spmm(
     if n_rows == 0 or F == 0:
         return out
     lib = _build.load()
-    with torch.cuda.device(x.device):
+    with _launch.on(x.device):
         part, part_row = _launch.reduce_scratch(lib, n_rows, n_edges, F, x.device)
         rc = getattr(lib, f"gnn_csr_spmm_{suffix}")(
             row_ptr.data_ptr(), col.data_ptr(),

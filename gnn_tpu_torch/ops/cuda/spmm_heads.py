@@ -105,7 +105,7 @@ def csr_spmm_heads(
     # F % 4 == 0 keeps the four features of a vector load in one head
     vec = int(F % 4 == 0 and _launch.vector_path(x2, out.view(n_rows, H * F)))
     lib = _build.load()
-    with torch.cuda.device(x.device):
+    with _launch.on(x.device):
         part, part_row = _launch.reduce_scratch(lib, n_rows, n_edges, H * F, x.device)
         rc = getattr(lib, f"gnn_gat_spmm_{suffix}")(
             row_ptr.data_ptr(), col.data_ptr(), w.data_ptr(),
@@ -165,7 +165,7 @@ def sddmm_heads(dst: torch.Tensor, src: torch.Tensor, g: torch.Tensor, x: torch.
     # F % 4 == 0 keeps the four features of a vector load in one head
     vec = int(F % 4 == 0 and _launch.vector_path(g2, x2))
     lib = _build.load()
-    with torch.cuda.device(x.device):
+    with _launch.on(x.device):
         rc = getattr(lib, f"gnn_gat_sddmm_{suffix}")(
             dst.data_ptr(), src.data_ptr(), g.data_ptr(), x.data_ptr(), dw.data_ptr(),
             n_edges, H, F, vec, _launch.stream(x.device),

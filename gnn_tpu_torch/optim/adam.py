@@ -38,30 +38,44 @@ class Adam(Optimizer):
         super().__init__(params, defaults)
 
     def _update(self, group: dict) -> None:
+        # Each term is one foreach op over the group's leaves, with a per-leaf
+        # update's float32 arithmetic on every element, so that a step costs
+        # the host a handful of launches however many leaves the model has.
+        # Leaves are grouped by their step count (a leaf without a gradient
+        # skips a step).
         lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
         wd, decoupled = group["weight_decay"], group["decoupled_weight_decay"]
+        by_step = {}
         for p in group["params"]:
             if p.grad is None:
                 continue
-            g = p.grad
-            if wd != 0.0 and not decoupled:
-                g = g + wd * p
             state = self.state[p]
             if not state:
                 state["step"] = 0
                 state["exp_avg"] = torch.zeros_like(p)
                 state["exp_avg_sq"] = torch.zeros_like(p)
             state["step"] += 1
-            t = np.float32(state["step"])
+            by_step.setdefault(state["step"], []).append(p)
+        for step, ps in by_step.items():
+            t = np.float32(step)
             bc1 = float(np.float32(1) - np.float32(b1) ** t)
             bc2 = float(np.float32(1) - np.float32(b2) ** t)
-            m, v = state["exp_avg"], state["exp_avg_sq"]
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g.square())
-            upd = (-lr * (m / bc1)) / ((v / bc2).sqrt() + eps)
+            gs = [p.grad for p in ps]
+            if wd != 0.0 and not decoupled:
+                gs = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
+            ms = [self.state[p]["exp_avg"] for p in ps]
+            vs = [self.state[p]["exp_avg_sq"] for p in ps]
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - b1))
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2))
+            den = torch._foreach_div(vs, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, eps)
+            upd = torch._foreach_div(torch._foreach_mul(torch._foreach_div(ms, bc1), -lr), den)
             if wd != 0.0 and decoupled:
-                upd = upd - lr * wd * p
-            p.add_(upd)
+                torch._foreach_sub_(upd, torch._foreach_mul(ps, lr * wd))
+            torch._foreach_add_(ps, upd)
 
 
 class AdamW(Adam):

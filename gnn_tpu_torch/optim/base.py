@@ -3,7 +3,7 @@ an optimizer's step.
 
 :class:`Optimizer` is ``torch.optim.Optimizer`` with the port's spans: its
 ``zero_grad`` runs in ``optim.zero_grad`` and its ``step`` in ``optim.step``
-(every per-leaf kernel of the update); a subclass writes ``_update(group)``,
+(every kernel of the update); a subclass writes ``_update(group)``,
 the update of one parameter group. :func:`clip_by_global_norm` is the port
 of ``gnn_tpu/optim/base.py::clip_by_global_norm``. The JAX package chains it
 in front of the optimizer (``chain(clip_by_global_norm(c), base)``); here it

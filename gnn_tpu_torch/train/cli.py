@@ -5,10 +5,11 @@ Port of ``gnn_tpu/train/cli.py`` with a ``--device`` flag (default ``cuda``):
     python -m gnn_tpu_torch.train.cli --dataset sbm --device cuda \
         --train.epochs 100 --optim.lr 0.01
 
-``--model.name`` is one of gcn, gat, encoder_gcn, sage (with ``--model.aggr
-mean|sum|max``) and gin; ``--optim.name`` one of adam, adamw and sgd (with
-``--optim.momentum``); ``--optim.grad_clip C`` clips the gradients' global
-norm to C before each step. ``--train.batch_size B --train.fanouts [10,5]``
+``--model.name`` is one of gcn, gat, gatv2 (full graph, one device),
+encoder_gcn, sage (with ``--model.aggr mean|sum|max``) and gin;
+``--optim.name`` one of adam, adamw and sgd (with ``--optim.momentum``);
+``--optim.grad_clip C`` clips the gradients' global norm to C before each
+step. ``--train.batch_size B --train.fanouts [10,5]``
 trains sage, gat or gin on neighbour-sampled minibatches (with
 ``--train.host_features true`` sampled and gathered on the host);
 ``--train.reorder auto|true|false|cluster`` picks the node order of a

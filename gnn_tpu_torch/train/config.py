@@ -18,11 +18,11 @@ __all__ = ["ModelConfig", "OptimConfig", "TrainConfig", "DistConfig", "Config"]
 
 @dataclass
 class ModelConfig:
-    name: str = "gcn"  # gcn | gat | sage | encoder_gcn | gin
+    name: str = "gcn"  # gcn | gat | gatv2 | sage | encoder_gcn | gin
     hidden: int = 64
     num_layers: int = 2
     dropout: float = 0.5
-    heads: int = 8  # gat only
+    heads: int = 8  # gat and gatv2 only
     aggr: str = "mean"  # sage only
 
 

@@ -29,6 +29,7 @@ All of them share evaluation every ``eval_every`` epochs, metrics, early
 stopping on validation accuracy and checkpoints
 (``train.checkpoint_dir``, ``fit(resume=True)``). It trains every
 ``model.name`` of the config: ``gcn``, ``gat`` (ignores the edge weights),
+``gatv2`` (likewise; the full graph on one device only),
 ``encoder_gcn`` (BatchNorm buffers: updated by the train step, read by the
 evaluation, returned in the middle slot), ``sage`` (scales its messages by
 the ``gcn_norm`` weights, as the JAX ``fit`` hands them to every model) and
@@ -95,7 +96,7 @@ from gnn_tpu_torch.graphs.blocked import cluster_order
 from gnn_tpu_torch.graphs.convert import as_numpy
 from gnn_tpu_torch.graphs.data import Data
 from gnn_tpu_torch.graphs.sampling import NeighborSampler
-from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
+from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GATv2, GraphSAGE
 from gnn_tpu_torch.nn.losses import accuracy, cross_entropy
 from gnn_tpu_torch.nn.normalization import BatchNorm
 from gnn_tpu_torch.nn.state import buffer_state
@@ -125,6 +126,11 @@ def build_model(
         )
     if m.name == "gat":
         return GAT(
+            in_features, m.hidden, num_classes,
+            num_layers=m.num_layers, heads=m.heads, dropout=m.dropout, generator=generator,
+        )
+    if m.name == "gatv2":
+        return GATv2(
             in_features, m.hidden, num_classes,
             num_layers=m.num_layers, heads=m.heads, dropout=m.dropout, generator=generator,
         )

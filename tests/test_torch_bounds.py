@@ -62,6 +62,31 @@ def test_sddmm_bound_at_arxiv_scale(H, F, itemsize, mb, ms, noreuse_ms):
 
 
 @pytest.mark.parametrize(
+    "H,F,mb,ms,noreuse_ms,bwd_mb,bwd_ms,bwd_noreuse_ms",
+    [(8, 8, 185.8, 0.0555, 0.2319, 272.5, 0.0814, 0.4579), (1, 40, 83.9, 0.0251, 0.1353, 138.1, 0.0412, 0.2647)],
+)
+def test_gatv2_score_bounds_at_arxiv_scale(H, F, mb, ms, noreuse_ms, bwd_mb, bwd_ms, bwd_noreuse_ms):
+    """GATv2's score, float32. Forward: int32 dst and src, s [E, H], h_src,
+    h_dst and att once; without reuse every edge reads its h_src row.
+    Backward: ds [E, H], h_src, h_dst, att and the edge list (src, dst)
+    in, dh_src, dh_dst and datt out; without reuse each pass reads the
+    other side's row an edge and the pass by source ds again."""
+    W = _feat(1, H * F, 4)
+    fwd = bounds.gatv2_score_bound(N, N, E, H, F)
+    fixed = 2 * COL + 4 * E * H + _feat(N, H * F, 4) + W
+    assert (fwd.bytes, fwd.noreuse_bytes) == (fixed + _feat(N, H * F, 4), fixed + _feat(E, H * F, 4))
+    assert fwd.operations == 4 * E * H * F
+    bwd = bounds.gatv2_score_bwd_bound(N, N, E, H, F)
+    fixed = 4 * E * H + 2 * W + 2 * COL + 2 * _feat(N, H * F, 4)
+    assert bwd.bytes == fixed + 2 * _feat(N, H * F, 4)
+    assert bwd.noreuse_bytes == fixed + 2 * _feat(E, H * F, 4) + 4 * E * H
+    assert bwd.operations == 8 * E * H * F
+    for b, want in ((fwd, (mb, ms, noreuse_ms)), (bwd, (bwd_mb, bwd_ms, bwd_noreuse_ms))):
+        assert b.bytes / 1e6 == pytest.approx(want[0], abs=0.05) and b.bound_by == "bytes"
+        assert (b.bound_ms, b.noreuse_ms) == pytest.approx(want[1:], abs=5e-4)
+
+
+@pytest.mark.parametrize(
     "F,itemsize,mb,ms,noreuse_ms",
     [(256, 4, 367.3, 0.110, 0.815), (40, 4, 74.7, 0.022, 0.133), (256, 2, 193.9, 0.058, 0.411)],
 )

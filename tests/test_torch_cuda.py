@@ -14,6 +14,7 @@ import torch
 
 from gnn_tpu_torch import graphs as tg
 from gnn_tpu_torch import ops as tops
+from gnn_tpu_torch.ops.cuda.gatv2_score import gatv2_score, gatv2_score_bwd, gatv2_score_bwd_plain, gatv2_score_plain
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
 from gnn_tpu_torch.ops.cuda.spmm_heads import csr_spmm_heads, csr_spmm_heads_plain, sddmm_heads, sddmm_heads_plain
@@ -366,6 +367,135 @@ def test_gat_on_card_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     after = tuple(c.launches for c in counters)
     assert tuple(b - a for a, b in zip(before, after)) == (2, 4, 4, 2)
+    (o_c, dx_c, g_c), (o_g, dx_g, g_g) = outs
+    torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# (H, F) of GATv2's score on the card: the benchmark's two layers (8, 8) and
+# (1, 40), the scalar path (3, 5) and (4, 6), and the 8 x 32 of chip_smoke.py
+_GATV2_HEADS = ((8, 8), (1, 40), (3, 5), (4, 6), (8, 32))
+
+
+def _transpose(dst, src, n_src):
+    """(t_row_ptr, t_perm, t_col) of the dst-sorted edges (dst, src), as
+    ``build_adjacency`` makes them."""
+    t_perm = np.lexsort((dst, src))
+    t_row_ptr = np.concatenate([[0], np.cumsum(np.bincount(src, minlength=n_src))])
+    return [a.astype(np.int32) for a in (t_row_ptr, t_perm, dst[t_perm])]
+
+
+def _check_gatv2(csr, h_src, h_dst, att):
+    """GATv2's score kernels on the card, each twice (bitwise equal: no
+    atomics), against their plain versions in float64, one launch of each a
+    call where there are edges. ``att`` and ``ds`` are signed, as a softmax's
+    gradient is. The scores sum F float32 terms: rtol=atol=1e-5 per score.
+    The backward's sums run over whole rows (60,000 edges at the hub) and
+    cancel, so a single entry can keep little of its terms' size; each output
+    is held to a relative Frobenius error of 1e-5, float32 rounding of such
+    sums being a few 1e-7 of the norm."""
+    row_ptr, src, dst, t_row_ptr, t_perm, t_col = csr
+    wide = [t.double() for t in (h_src, h_dst, att)]
+    before = (gatv2_score.launches, gatv2_score_bwd.launches)
+    s = gatv2_score(h_src, h_dst, att, src, dst)
+    assert torch.equal(s, gatv2_score(h_src, h_dst, att, src, dst))
+    torch.testing.assert_close(s.double(), gatv2_score_plain(*wide, src, dst), rtol=1e-5, atol=1e-5)
+    ds = torch.randn(s.shape, device=s.device)
+    args = (ds, h_src, h_dst, att, row_ptr, src, t_row_ptr, t_perm, t_col)
+    got = gatv2_score_bwd(*args)
+    for a, b in zip(got, gatv2_score_bwd(*args)):
+        assert torch.equal(a, b)
+    for name, a, b in zip(("dh_src", "dh_dst", "datt"), got, gatv2_score_bwd_plain(ds.double(), *wide, row_ptr, src)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        err = ((a.double() - b).norm() / b.norm().clamp_min(1e-30)).item()
+        assert err <= 1e-5, f"{name}: relative Frobenius error {err:.3e}"
+    torch.cuda.synchronize()
+    edges = int(src.numel() > 0)
+    assert (gatv2_score.launches - before[0], gatv2_score_bwd.launches - before[1]) == (2 * edges, 2 * edges)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["power-law"] + list(_SKEWED_DEGREES))
+def test_gatv2_score_matches_plain_version_on_card(cuda_device, layout):
+    """The score forward and backward over the GAT adjacency of a power-law
+    graph (where misaligned features also take the scalar path) and over the
+    hand-made CSRs: a 60,000-edge hub, rows on tile boundaries, empty rows,
+    no edges; sources drawn from 1,000 nodes, so the transpose's rows are
+    long too."""
+    rng = np.random.default_rng(4)
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    if layout == "power-law":
+        adj = _attention_graph(cuda_device)
+        csr = (adj.row_ptr, adj.src, adj.dst, adj.t_row_ptr, adj.t_perm, adj.t_col)
+        n_dst = n_src = adj.num_dst_nodes
+    else:
+        deg = np.asarray(_SKEWED_DEGREES[layout])
+        n_dst, n_src = deg.size, 1000
+        dst = np.repeat(np.arange(n_dst), deg).astype(np.int32)
+        src = rng.integers(0, n_src, dst.size).astype(np.int32)
+        row_ptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+        csr = tuple(as_dev(a) for a in (row_ptr, src, dst, *_transpose(dst, src, n_src)))
+    for H, F in _GATV2_HEADS:
+        h_src = as_dev(rng.normal(size=(n_src, H, F)).astype(np.float32))
+        h_dst = as_dev(rng.normal(size=(n_dst, H, F)).astype(np.float32))
+        att = as_dev(rng.normal(size=(H, F)).astype(np.float32))
+        _check_gatv2(csr, h_src, h_dst, att)
+        if layout == "power-law" and F % 4 == 0:
+            hs = _misaligned(n_src, H * F, torch.float32, cuda_device).view(n_src, H, F)
+            hd = _misaligned(n_dst, H * F, torch.float32, cuda_device).view(n_dst, H, F)
+            _check_gatv2(csr, hs, hd, att)
+
+
+@pytest.mark.gpu
+def test_gatv2_score_rejects_bad_arguments(cuda_device):
+    dst = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    src = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    h = torch.randn(2, 4, 8, device=cuda_device)
+    att = torch.randn(4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gatv2_score(h.bfloat16(), h, att, src, dst)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gatv2_score(h.transpose(0, 1).contiguous().transpose(0, 1), h, att, src, dst)
+    with pytest.raises(ValueError, match="h_dst is on cpu"):
+        gatv2_score(h, h.cpu(), att, src, dst)
+    with pytest.raises(ValueError, match="one \\(H, F\\)"):
+        gatv2_score(h, h[:, :2], att, src, dst)
+    with pytest.raises(ValueError, match="src must be a contiguous 1-D int32"):
+        gatv2_score(h, h, att, src.long(), dst)
+    with pytest.raises(ValueError, match="one length"):
+        gatv2_score(h, h, att, src[:1], dst)
+    with pytest.raises(ValueError, match="ds must be"):
+        gatv2_score_bwd(torch.ones(3, 4, device=cuda_device), h, h, att, dst, src, dst, src, dst)
+
+
+@pytest.mark.gpu
+def test_gatv2_on_card_matches_cpu(cuda_device):
+    """A training step of the 2-layer GATv2 (4 heads x 8, then 1 head over 4
+    classes) on the card against the same model on the CPU (plain
+    versions): output, input gradient and every parameter's gradient, and
+    the launches: the score's forward and backward once a layer, K3 and the
+    SDDMM as in GAT, K2 for the denominator only, K1 not at all (the score
+    gathers nothing whose VJP it would run)."""
+    from gnn_tpu_torch.models import GATv2
+
+    adj = _attention_graph("cpu", n=2000)
+    x = torch.randn(adj.num_dst_nodes, 16)
+    model_cpu = GATv2(16, 8, 4, heads=4, dropout=0.0, generator=torch.Generator().manual_seed(0))
+    model_gpu = GATv2(16, 8, 4, heads=4, dropout=0.0).to(cuda_device)
+    model_gpu.load_state_dict(model_cpu.state_dict())
+    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads, gatv2_score, gatv2_score_bwd)
+    outs = []
+    for model, a, xx in ((model_cpu, adj, x), (model_gpu, adj.to(cuda_device), x.to(cuda_device))):
+        before = tuple(c.launches for c in counters)
+        xx = xx.clone().requires_grad_()
+        out = model(xx, a)
+        (out ** 2).sum().backward()
+        outs.append((out.detach().cpu(), xx.grad.cpu(), [p.grad.cpu() for p in model.parameters()]))
+        torch.cuda.synchronize()
+        launches = tuple(c.launches - b for c, b in zip(counters, before))
+    assert launches == (0, 2, 4, 2, 2, 2)
     (o_c, dx_c, g_c), (o_g, dx_g, g_g) = outs
     torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-4)

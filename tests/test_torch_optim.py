@@ -60,6 +60,32 @@ def test_adam_skips_params_without_grad():
     assert torch.all(p < 1) and torch.all(q == 1)
 
 
+@pytest.mark.parametrize("cls", [Adam, AdamW])
+def test_adam_leaves_that_skip_steps_keep_their_own_count(cls):
+    """One optimizer over leaves whose gradients are missing at some steps
+    takes, for each leaf, bitwise the steps of an optimizer over that leaf
+    alone: each leaf's bias correction follows its own step count."""
+    gen = torch.Generator().manual_seed(0)
+    shapes = [(4, 3), (3,), ()]
+    init = [torch.randn(s, generator=gen) for s in shapes]
+    together = [torch.nn.Parameter(t.clone()) for t in init]
+    alone = [torch.nn.Parameter(t.clone()) for t in init]
+    opt = cls(together, lr=0.05, weight_decay=1e-2)
+    opts = [cls([p], lr=0.05, weight_decay=1e-2) for p in alone]
+    for step in range(6):
+        for i, (a, b) in enumerate(zip(together, alone)):
+            skip = (i == 1 and step in (1, 2)) or (i == 2 and step == 4)
+            g = None if skip else torch.randn(a.shape, generator=gen)
+            a.grad = None if g is None else g.clone()
+            b.grad = None if g is None else g.clone()
+        opt.step()
+        for o in opts:
+            o.step()
+    for a, b in zip(together, alone):
+        assert torch.equal(a, b)
+    assert [opt.state[p]["step"] for p in together] == [6, 4, 5]
+
+
 SHAPES = {"w": (7, 5), "b": (5,), "eps": ()}
 
 
