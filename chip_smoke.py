@@ -65,6 +65,10 @@ gradient in K3's backward (``sddmm_heads``, ``csrc/gat_sddmm.cu``) against
 the expression it replaced, over the whole graph at (H, F) = (8, 8) and
 (1, 40) (the benchmark's GAT) and (8, 32), and over the benchmark's sampled
 hops (batch 1024, fanouts [25, 10]) at (8, 8) outer and (1, 40) inner.
+Phase 1-softmax holds the attention's softmax by destination
+(``edge_softmax`` and ``edge_softmax_bwd``, ``csrc/edge_softmax.cu``)
+against its plain versions over the whole graph at [E, 8] and [E, 1] (the
+benchmark's GAT and GATv2 layers) and over the same sampled hops.
 Phase 1-gatv2 holds GATv2's attention score (``gatv2_score`` and
 ``gatv2_score_bwd``, ``csrc/gatv2_score.cu``, float32) against their plain
 versions over the whole graph at (H, F) = (8, 8) and (1, 40) (the
@@ -183,6 +187,8 @@ from gnn_tpu_torch.models import GAT, GCN, GIN, EncoderGCN, GraphSAGE
 from gnn_tpu_torch.nn import cross_entropy
 from gnn_tpu_torch.ops import segment_max, spmm, spmm_edge_weighted
 from gnn_tpu_torch.ops.cuda import _build, bounds
+from gnn_tpu_torch.ops.cuda.edge_softmax import edge_softmax, edge_softmax_bwd, edge_softmax_bwd_plain, edge_softmax_plain
+from gnn_tpu_torch.ops.cuda.gat_score import gat_score, gat_score_bwd
 from gnn_tpu_torch.ops.cuda.gatv2_score import gatv2_score, gatv2_score_bwd, gatv2_score_bwd_plain, gatv2_score_plain
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
@@ -250,6 +256,15 @@ KERNELS = {
         source="gnn_tpu_torch/csrc/gatv2_score.cu",
         replaces="none: the JAX package has no GATv2",
     ),
+    # The attention's softmax by destination (GAT's and GATv2's), forward and backward
+    "edge_softmax": dict(
+        source="gnn_tpu_torch/csrc/edge_softmax.cu",
+        replaces="none: XLA's segment_max, gather, exp and segment sum in gnn_tpu/mp/gat.py",
+    ),
+    "edge_softmax_bwd": dict(
+        source="gnn_tpu_torch/csrc/edge_softmax.cu",
+        replaces="none: XLA's VJP of the same",
+    ),
     # A composition, not a kernel of its own: torch.bmm (the library) over the
     # dense blocks, then K1 over the remainder CSR
     "blocked_matvec": dict(
@@ -261,7 +276,8 @@ KERNELS = {
 COUNTERS = {
     "csr_spmm": csr_spmm, "segment_sum_csr": segment_sum_csr, "csr_spmm_heads": csr_spmm_heads,
     "sddmm_heads": sddmm_heads, "gatv2_score": gatv2_score, "gatv2_score_bwd": gatv2_score_bwd,
-    "blocked_matvec": blocked_matvec,
+    "edge_softmax": edge_softmax, "edge_softmax_bwd": edge_softmax_bwd, "blocked_matvec": blocked_matvec,
+    "gat_score": gat_score, "gat_score_bwd": gat_score_bwd,
 }
 
 
@@ -348,10 +364,12 @@ def phase0() -> dict:
     return info
 
 
-def check_repeat(label: str, kernel, args, got: torch.Tensor) -> None:
+def check_repeat(label: str, kernel, args, got) -> None:
     """A second call gives the same bits: the kernels sum in a fixed order,
-    with no atomics."""
-    if not torch.equal(kernel(*args), got):
+    with no atomics. ``got`` is a tensor or a tuple of them."""
+    again = kernel(*args)
+    pairs = zip(again, got) if isinstance(got, tuple) else [(again, got)]
+    if not all(torch.equal(a, b) for a, b in pairs):
         raise AssertionError(f"{label}: a second call gave other bits")
 
 
@@ -379,6 +397,18 @@ def compare_norm(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float 
     if err > rtol:
         raise AssertionError(f"{label}: relative Frobenius error {err:.3e} above {rtol}")
     return err
+
+
+def compare_each(label: str, got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    """Every entry within ``rtol`` of its own size (atol 1e-30), for outputs
+    whose values span many decades. Returns the max abs error."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} (want {tuple(want.shape)}) or non-finite values")
+    try:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=1e-30, check_dtype=False)
+    except AssertionError as err:
+        raise AssertionError(f"{label}: {err}") from None
+    return (got.double() - want.double()).abs().max().item()
 
 
 def library_ms(label: str, call, got: torch.Tensor) -> float:
@@ -829,6 +859,60 @@ def phase1_sddmm(adj, dev, results) -> None:
     torch.cuda.empty_cache()
 
 
+SOFTMAX_HEADS = (8, 1)  # heads of the benchmark's GAT and GATv2 layers
+
+
+def phase1_softmax(adj, dev, results) -> None:
+    """The attention's softmax by destination (``edge_softmax`` and
+    ``edge_softmax_bwd``, ``csrc/edge_softmax.cu``) against its plain
+    versions (a scatter-max, the shift's gather, exp and ``index_add_``;
+    ``(g_ex + g_den[dst]) * ex``), over the whole graph's GAT adjacency at
+    [E, 8] and [E, 1] and over the hops of the benchmark's sampled GAT
+    (batch 1024, fanouts [25, 10]) at [E, 8] outer and [E, 1] inner, float32,
+    scores uniform in +-30 and signed cotangents. Every value is held to its
+    own size, as the ``gpu`` tests hold them: within a row e - m spans 0 to
+    about -60, so most of ex lies far below any fixed atol. ex and de repeat
+    the plain arithmetic (rtol 1e-6, atol 1e-30); den sums a row in another
+    order, and a cut row from segments taken with their own max, so it is
+    held to the float64 sum of the plain version's ex (rtol 1e-5). No one
+    library call computes either."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    hops = [a.to(dev) for a in hop_adjacencies(SAMPLED_BATCH, SDDMM_HOP_FANOUTS)]
+    runs = [(adj, "", H, {}) for H in SOFTMAX_HEADS] + [
+        (a, "hop ", H, dict(hop=f"gat-{label}", edges=a.num_edges))
+        for label, a, H in zip(hop_names(len(hops)), hops, SOFTMAX_HEADS)
+    ]
+
+    def same_values(label, got, want, _dtype):
+        return compare_each(label, got, want, rtol=1e-6)
+
+    for a, what, H, where in runs:
+        def ex_and_den(label, got, want, _dtype, rows=a.dst.long()):
+            (ex, den), (want_ex, _) = got, want
+            want_den = torch.zeros(den.shape, dtype=torch.float64, device=den.device)
+            want_den = want_den.index_add_(0, rows, want_ex.double()).clamp_min(1e-16)
+            return max(compare_each(f"{label} ex", ex, want_ex, rtol=1e-6),
+                       compare_each(f"{label} den", den.double(), want_den, rtol=1e-5))
+
+        n, e_n = a.num_dst_nodes, a.num_edges
+        e = torch.rand(e_n, H, generator=gen, device=dev) * 60 - 30
+        ex, den = edge_softmax_plain(e, a.row_ptr)
+        g_ex, g_den = torch.randn(e_n, H, generator=gen, device=dev), torch.randn(n, H, generator=gen, device=dev)
+        tag = f"{where.get('hop', 'full')} H={H}"
+        check_cases(results, (
+            ("edge_softmax", f"{what}ex, den [E,{H}]", edge_softmax, edge_softmax_plain, (e, a.row_ptr),
+             bounds.edge_softmax_bound(n, e_n, H), None),
+        ), tag, torch.float32, check=ex_and_den, H=H, **where)
+        check_cases(results, (
+            ("edge_softmax_bwd", f"{what}de [E,{H}]", edge_softmax_bwd, edge_softmax_bwd_plain, (ex, g_ex, g_den, a.dst),
+             bounds.edge_softmax_bwd_bound(n, e_n, H), None),
+        ), tag, torch.float32, check=same_values, H=H, **where)
+        log(f"phase1 bitwise repeat {tag} ({e_n} edges): softmax forward and backward equal")
+        del e, ex, den, g_ex, g_den
+    del hops
+    torch.cuda.empty_cache()
+
+
 def id_order_row(results, name: str, what: str, **shape) -> dict:
     """The float32 row of ``name`` in id order (phases 1, 1-gat, 1-unweighted)
     with this ``what`` and shape."""
@@ -1205,13 +1289,15 @@ def phase2_orders(data: Data, dev, auto_ms: float) -> dict:
 
 def phase2_gat(data: Data, dev) -> tuple:
     """The GAT main path: full-graph training at arxiv scale. A layer runs
-    K3 (numerator) and K2 (denominator) forward; backward K3 (dh), the
-    SDDMM (the attention weights' gradient), K1 (the source gather's VJP)
-    and K2 (the destination gather's VJP); the evaluation runs the forward
-    again."""
+    the score (node and edge scores), the softmax (shift, exp and
+    denominator) and K3 (numerator) forward; backward the softmax's
+    backward, K3 (dh), the SDDMM (the attention weights' gradient) and the
+    score's backward (K2 and K1 inside its C entry, not through their
+    wrappers); the evaluation runs the forward again."""
     cfg = arxiv_gat_config()
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "sddmm_heads": n, "blocked_matvec": 0}
+    want = {"csr_spmm_heads": 3 * n, "sddmm_heads": n, "edge_softmax": 2 * n, "edge_softmax_bwd": n,
+            "gat_score": 2 * n, "gat_score_bwd": n, "blocked_matvec": 0}
     return train_phase("phase2-gat", cfg, data, dev, want, want_perm=True)
 
 
@@ -1229,13 +1315,13 @@ def arxiv_gatv2_config(epochs: int = 5) -> Config:
 
 def phase2_gatv2(data: Data, dev) -> tuple:
     """The GATv2 path: full-graph training at arxiv scale. A layer runs the
-    score forward, K3 (numerator) and K2 (denominator); backward the score's
-    backward, K3 (dh) and the SDDMM; the evaluation runs the forward again.
-    No K1: the score gathers nothing whose VJP would run it."""
+    score forward, the softmax and K3 (numerator); backward the score's, the
+    softmax's, K3 (dh) and the SDDMM; the evaluation runs the forward again.
+    No K1 or K2: the score gathers nothing whose VJP would run them."""
     cfg = arxiv_gatv2_config()
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"segment_sum_csr": 2 * n, "csr_spmm_heads": 3 * n, "sddmm_heads": n, "gatv2_score": 2 * n,
-            "gatv2_score_bwd": n}
+    want = {"csr_spmm_heads": 3 * n, "sddmm_heads": n, "gatv2_score": 2 * n, "gatv2_score_bwd": n,
+            "edge_softmax": 2 * n, "edge_softmax_bwd": n}
     return train_phase("phase2-gatv2", cfg, data, dev, want, want_perm=True)
 
 
@@ -1304,14 +1390,15 @@ def phase2_sampled_sage(data: Data, dev) -> tuple:
 
 def phase2_sampled_gat(data: Data, dev) -> tuple:
     """The GAT 2 x (8 x 32) on minibatches of 1024 seeds with fanouts [10,
-    5]. A hop runs K3 (numerator) and K2 (denominator) forward; backward K3
-    (dh; the first hop's too, its input being ``lin``'s output), the SDDMM,
-    K1 (the source gather's VJP) and K2 (the destination gather's VJP): K1
-    2, K2 4, K3 4, the SDDMM 2 a step. The full-graph evaluation adds K2 2
-    and K3 2."""
+    5]. A hop runs the score, the softmax and K3 (numerator) forward;
+    backward the softmax's, K3 (dh; the first hop's too, its input being
+    ``lin``'s output), the SDDMM and the score's (K2 and K1 inside it): K3
+    4, the SDDMM 2, the softmax 2 and 2, the score 2 and 2 a step. The
+    full-graph evaluation adds K3 2, the softmax 2 and the score 2."""
     cfg = arxiv_sampled_config("gat", GAT_FANOUTS, steps=20)
     n = cfg.train.epochs * cfg.model.num_layers
-    want = {"csr_spmm": n, "segment_sum_csr": 3 * n, "csr_spmm_heads": 3 * n, "sddmm_heads": n, "blocked_matvec": 0}
+    want = {"csr_spmm_heads": 3 * n, "sddmm_heads": n, "edge_softmax": 2 * n, "edge_softmax_bwd": n,
+            "gat_score": 2 * n, "gat_score_bwd": n, "blocked_matvec": 0}
     return train_phase("phase2-sampled-gat", cfg, data, dev, want, falling=True, want_perm=False)
 
 
@@ -1875,7 +1962,7 @@ def phase3(dev) -> None:
 
     # Sampled minibatches at small size: card against CPU, the CLI, resume.
     sampled_card_vs_cpu("GraphSAGE", lambda gen: GraphSAGE(F, 32, 4, dropout=0.0, generator=gen), data, dev, (3, 0, 0))
-    sampled_card_vs_cpu("GAT", lambda gen: GAT(F, 8, 4, heads=4, dropout=0.0, generator=gen), data, dev, (2, 4, 4))
+    sampled_card_vs_cpu("GAT", lambda gen: GAT(F, 8, 4, heads=4, dropout=0.0, generator=gen), data, dev, (2, 2, 4))
     sampled_card_vs_cpu("GIN", lambda gen: GIN(F, 32, 4, num_layers=2, generator=gen), data, dev, (3, 0, 0))
     for name in ("sage", "gat", "gin"):
         flags = ["--model.name", name, "--train.batch_size", "64", "--train.fanouts", "[4,4]"]
@@ -2314,6 +2401,7 @@ def main() -> int:
     phase1_unweighted(adj, dev, checks)
     phase1_hop(dev, checks)
     phase1_sddmm(adj, dev, checks)
+    phase1_softmax(adj, dev, checks)
     phase1_gatv2(adj, dev, checks)
     log(f"phase1-dist rows: {json.dumps(phase1_dist(ei, w, adj, dev))}")
     del adj
@@ -2373,6 +2461,8 @@ def main() -> int:
         "sddmm_heads": dict(H=8, F=8, what="dw"),
         "gatv2_score": dict(H=8, F=8, what="s", aligned=True),
         "gatv2_score_bwd": dict(H=8, F=8, what="ds", aligned=True),
+        "edge_softmax": dict(H=8, what="ex, den [E,8]"),
+        "edge_softmax_bwd": dict(H=8, what="de [E,8]"),
         "blocked_matvec": dict(F=256, what="fwd A@x R=256 float32"),
     }
     entries = []

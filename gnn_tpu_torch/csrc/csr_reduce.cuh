@@ -112,6 +112,82 @@ __device__ __forceinline__ int merge_path_row(const int32_t* rp, int base, int l
   return m ? lo + __ffs(m) - 1 : hi;
 }
 
+// The merge items [d0, d1) of this CTA and its first and last rows i0c and
+// i1c, which warps 0 and 1 find in row_ptr (cta_row: two ints of shared
+// memory). Every thread returns them, after a __syncthreads; the CTA's
+// row_ptr[i0c .. i1c] is then being staged into rp_s with cp.async, which
+// the caller waits for.
+struct CtaItems {
+  int d0, d1, i0c, i1c;
+};
+
+__device__ __forceinline__ CtaItems cta_items(const int32_t* __restrict__ row_ptr, int32_t* rp_s,
+                                              int* cta_row, int n_rows, int n_edges, int warp,
+                                              int lane) {
+  const int d0 = blockIdx.x * kTileItems;
+  const int d1 = min(d0 + kTileItems, n_rows + n_edges);
+  if (warp < 2) {
+    const int d = warp == 0 ? d0 : d1;
+    const int i = merge_path_row(row_ptr, 0, max(0, d - n_edges), min(d, n_rows), d, lane);
+    if (lane == 0) cta_row[warp] = i;
+  }
+  __syncthreads();
+  const int i0c = cta_row[0], i1c = cta_row[1];
+  for (int t = threadIdx.x; t <= i1c - i0c; t += blockDim.x) {
+    cp_async4(rp_s + t, row_ptr + i0c + t);
+  }
+  return {d0, d1, i0c, i1c};
+}
+
+// A warp's kWarpItems merge items of its CTA's: rows i0 .. i1 and edges
+// [j0, j1), found in the staged slice rp_s; none where the CTA ends first.
+struct WarpItems {
+  int i0, i1, j0, j1;
+  bool none;
+};
+
+__device__ __forceinline__ WarpItems warp_items(const int32_t* rp_s, const CtaItems& c,
+                                                int n_edges, int warp, int lane) {
+  const int dw0 = min(c.d0 + warp * kWarpItems, c.d1);
+  const int dw1 = min(dw0 + kWarpItems, c.d1);
+  const int i0 = merge_path_row(rp_s, c.i0c, max(c.i0c, dw0 - n_edges), min(c.i1c, dw0), dw0, lane);
+  const int i1 = merge_path_row(rp_s, c.i0c, max(c.i0c, dw1 - n_edges), min(c.i1c, dw1), dw1, lane);
+  return {i0, i1, dw0 - i0, dw1 - i1, dw0 >= dw1};
+}
+
+// How a warp holds a row: wholly, or cut as its first row, begun in an
+// earlier warp (the head), or as its last, perhaps going on in a later one
+// (the tail).
+constexpr int kWhole = -1, kHead = 0, kTail = 1;
+
+// row(r, b, end, side) for each row r of the warp's items in order, with
+// [b, end) the row's edges among them.
+template <typename Row>
+__device__ __forceinline__ void for_each_row(const int32_t* rp_s, int i0c, const WarpItems& w,
+                                             int n_rows, Row&& row) {
+  if (w.none) return;
+  for (int r = w.i0; r <= w.i1 && r < n_rows; ++r) {
+    const int rb = rp_s[r - i0c];
+    const int end = r < w.i1 ? rp_s[r + 1 - i0c] : w.j1;
+    const int side = r == w.i1 ? kTail : r == w.i0 && rb < w.j0 ? kHead : kWhole;
+    row(r, max(rb, w.j0), end, side);
+  }
+}
+
+// The first warp tile of the run of tails of row r that ends at tile t - 1
+// (t where tile t - 1 holds no tail of r); part_row holds each tile's head
+// and tail rows. All lanes return the same value.
+__device__ __forceinline__ int run_start(const int32_t* __restrict__ part_row, int r, int t,
+                                         int lane) {
+  int s = t;
+  for (;;) {
+    const int q = s - 1 - lane;
+    const unsigned other = ~__ballot_sync(kFullMask, q >= 0 && part_row[2 * q + 1] == r);
+    if (other) return s - (__ffs(other) - 1);
+    s -= kWarp;
+  }
+}
+
 template <bool kVec, typename T>
 __device__ __forceinline__ float4 load_feat(const T* p) {
   return kVec ? load4(p) : make_float4(load1(p), 0.f, 0.f, 0.f);
@@ -210,27 +286,15 @@ csr_reduce_kernel(const int32_t* __restrict__ row_ptr,
   __shared__ int cta_row[2];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int total = n_rows + n_edges;
-  const int d0 = blockIdx.x * kTileItems;
-  const int d1 = min(d0 + kTileItems, total);
-  if (warp < 2) {
-    const int d = warp == 0 ? d0 : d1;
-    const int i = merge_path_row(row_ptr, 0, max(0, d - n_edges), min(d, n_rows), d, lane);
-    if (lane == 0) cta_row[warp] = i;
-  }
-  __syncthreads();
-  const int i0c = cta_row[0], i1c = cta_row[1];
-  const int j0c = d0 - i0c, j1c = d1 - i1c;
   int32_t* rp_s = smem;  // row_ptr[i0c .. i1c]
+  const CtaItems c = cta_items(row_ptr, rp_s, cta_row, n_rows, n_edges, warp, lane);
+  const int j0c = c.d0 - c.i0c, j1c = c.d1 - c.i1c;
   int32_t* col_s = smem + kTileItems + 1;
   // the third slice: K1's weights, or K3's weight rows
   int32_t* wi_s = col_s + kTileItems;
   float* w_s = reinterpret_cast<float*>(wi_s);
   const bool stage_w = Op::kGather && !Op::kHeads && w;
   const bool stage_wi = Op::kHeads && w_index;
-  for (int t = threadIdx.x; t <= i1c - i0c; t += blockDim.x) {
-    cp_async4(rp_s + t, row_ptr + i0c + t);
-  }
   if (Op::kGather) {
     for (int t = threadIdx.x; t < j1c - j0c; t += blockDim.x) {
       cp_async4(col_s + t, col + j0c + t);
@@ -241,33 +305,25 @@ csr_reduce_kernel(const int32_t* __restrict__ row_ptr,
   cp_async_wait_all();
   __syncthreads();
 
-  const int dw0 = min(d0 + warp * kWarpItems, d1);
-  const int dw1 = min(dw0 + kWarpItems, d1);
-  const int i0 = merge_path_row(rp_s, i0c, max(i0c, dw0 - n_edges), min(i1c, dw0), dw0, lane);
-  const int i1 = merge_path_row(rp_s, i0c, max(i0c, dw1 - n_edges), min(i1c, dw1), dw1, lane);
-  const int j0 = dw0 - i0, j1 = dw1 - i1;
+  const WarpItems items = warp_items(rp_s, c, n_edges, warp, lane);
   const int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
   const int head_width = Op::kHeads ? F / H : F;
   const int f_lane = (lane % kG) * (kVec ? 4 : 1);
   const int head0 = Op::kHeads && f_lane < F ? f_lane / head_width : 0;
   int head = -1, tail = -1;
-  if (dw0 < dw1) {
-    for (int r = i0; r <= i1 && r < n_rows; ++r) {
-      const int rb = rp_s[r - i0c];
-      const int e = r < i1 ? rp_s[r + 1 - i0c] : j1;
-      float* pdst = nullptr;
-      if (r == i1) {
-        tail = r;
-        pdst = part + (2 * tile + 1) * F;
-      } else if (r == i0 && rb < j0) {
-        head = r;
-        pdst = part + 2 * tile * F;
-      }
-      reduce_row<T, kVec, kG, Op>(max(rb, j0), e, col_s, stage_w ? w_s : nullptr,
-                                  stage_wi ? wi_s : nullptr, j0c, w, x, F, H, head_width,
-                                  head0, lane, out + static_cast<int64_t>(r) * F, pdst);
+  for_each_row(rp_s, c.i0c, items, n_rows, [&](int r, int b, int e, int side) {
+    float* pdst = nullptr;
+    if (side == kTail) {
+      tail = r;
+      pdst = part + (2 * tile + 1) * F;
+    } else if (side == kHead) {
+      head = r;
+      pdst = part + 2 * tile * F;
     }
-  }
+    reduce_row<T, kVec, kG, Op>(b, e, col_s, stage_w ? w_s : nullptr, stage_wi ? wi_s : nullptr,
+                                j0c, w, x, F, H, head_width, head0, lane,
+                                out + static_cast<int64_t>(r) * F, pdst);
+  });
   if (lane == 0) {
     part_row[2 * tile] = head;
     part_row[2 * tile + 1] = tail;
@@ -286,16 +342,7 @@ csr_reduce_fixup(const float* __restrict__ part, const int32_t* __restrict__ par
   if (t >= n_tiles) return;
   const int r = part_row[2 * t];
   if (r < 0) return;
-  int s = t;  // first tile of the run of tails of row r that ends at t - 1
-  for (;;) {
-    const int q = s - 1 - lane;
-    const unsigned other = ~__ballot_sync(kFullMask, q >= 0 && part_row[2 * q + 1] == r);
-    if (other) {
-      s -= __ffs(other) - 1;
-      break;
-    }
-    s -= kWarp;
-  }
+  const int s = run_start(part_row, r, t, lane);
   constexpr int kPer = kVec ? 4 : 1;
   for (int f = lane * kPer; f < F; f += kWarp * kPer) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);

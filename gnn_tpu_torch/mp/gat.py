@@ -7,12 +7,13 @@ Port of ``gnn_tpu/mp/gat.py::GATConv``, per head:
     h_i = sum_j alpha_ij (W x_j)
 
 in the flash form of ``gnn_tpu/mp/gat.py:192-206``: the per-node scores
-``a_src . h`` and ``a_dst . h`` are einsums, gathered to the edges
-(:func:`~gnn_tpu_torch.ops.gather_src_edges`, whose VJP runs K1, and
-:func:`~gnn_tpu_torch.ops.gather_dst_edges`, whose VJP runs K2); the scores
-are shifted by their per-destination max and exponentiated; the numerator
-sum_j ex_ij h_j runs on K3 (``ops/cuda/spmm_heads.py``) without the
-[E, H * F] message array, and the denominator sum_j ex_ij on K2. Dropout
+``a_src . h`` and ``a_dst . h`` (one GEMM for both) meet on the
+edges in one kernel, with the LeakyReLU (``ops/cuda/gat_score.py``, whose
+VJP reduces by destination on K2 and by source on K1); one
+softmax kernel by destination (``ops/cuda/edge_softmax.py``) shifts the
+scores by their per-destination max, exponentiates them and sums the
+denominator sum_j ex_ij; the numerator sum_j ex_ij h_j runs on K3
+(``ops/cuda/spmm_heads.py``) without the [E, H * F] message array. Dropout
 applies to the numerator's weights only. With the same dropout mask this
 equals the JAX package's non-flash path (softmax, dropout of alpha, sum)
 too, so the port has one path, and from the scores on it is
@@ -41,41 +42,28 @@ from gnn_tpu_torch.nn import init as init_lib
 from gnn_tpu_torch.nn.activations import leaky_relu
 from gnn_tpu_torch.nn.dropout import dropout as dropout_fn
 from gnn_tpu_torch.nn.linear import Linear
+from gnn_tpu_torch.ops.cuda.edge_softmax import edge_softmax_parts
+from gnn_tpu_torch.ops.cuda.gat_score import gat_scores
 from gnn_tpu_torch.ops.cuda.spmm_heads import spmm_heads_csr
-from gnn_tpu_torch.ops.edge_agg import edge_aggregate_max
-from gnn_tpu_torch.ops.gather import gather_dst_edges, gather_src_edges
-from gnn_tpu_torch.ops.segment import segment_sum_edges
 
 __all__ = ["GATConv", "attend"]
 
 
-def _segment_max_shift(adj: Adjacency, e: torch.Tensor) -> torch.Tensor:
-    """Per-destination max of the edge scores, gathered back per edge and
-    held constant in the backward. The shift must be per segment: a global
-    max underflows every segment whose scores sit far below it. One
-    plain-torch max for every layout, ``edge_aggregate_max`` over the
-    by-destination CSR (``segment_max`` by ``adj.dst``): the JAX package's
-    choice between ``edge_aggregate_max`` and ``segment_max``
-    (``gnn_tpu/mp/gat.py:52-57``) is between two layouts of the same max."""
-    m = edge_aggregate_max(e, adj.edge_agg_layouts()[0])
-    m = torch.nan_to_num(m, nan=0.0, posinf=0.0, neginf=0.0)  # empty segments: -inf -> 0
-    return m.index_select(0, adj.dst.long())
-
-
 def attend(conv, adj: Adjacency, e: torch.Tensor, h: torch.Tensor, *, generator=None, return_attention=False):
     """The attention's aggregation from the edge scores on, which GATConv
-    and GATv2Conv share: the per-destination shift, ``exp``, dropout of the
-    numerator's weights, the numerator sum_j ex_ij h_j on K3, the
-    denominator on K2, the heads concatenated or averaged (``conv.concat``)
-    and ``conv.bias``. ``e`` [E, H] float32 scores in the adjacency's edge
+    and GATv2Conv share: the softmax's parts (``ex``, each score less its
+    destination's max and exponentiated, the max held constant in the
+    backward, as the JAX package's ``stop_gradient``; the denominator
+    ``den``), dropout of the numerator's weights, the numerator sum_j ex_ij
+    h_j on K3, the heads concatenated or averaged (``conv.concat``) and
+    ``conv.bias``. ``e`` [E, H] float32 scores in the adjacency's edge
     order, ``h`` [N_src, H, F] the messages. Returns the output [N_dst, H *
     F] or [N_dst, F]; with ``return_attention`` also alpha [E, H] (after
     dropout in training mode)."""
     n_out, H, F = adj.num_dst_nodes, h.shape[1], h.shape[2]
-    ex = torch.exp(e - _segment_max_shift(adj, e))  # [E, H]
+    ex, den = edge_softmax_parts(e, adj)  # [E, H], [N_dst, H]
     ex_num = dropout_fn(ex, conv.dropout_rate, training=conv.training, generator=generator)
     num = spmm_heads_csr(adj, h, ex_num).float()  # [N_dst, H, F]
-    den = segment_sum_edges(ex, adj).clamp_min(1e-16)  # [N_dst, H]
     out = num / den[:, :, None]
     out = out.reshape(n_out, H * F) if conv.concat else out.mean(dim=1)
     if conv.bias is not None:
@@ -140,17 +128,11 @@ class GATConv(MessagePassing):
                 )
             return self._forward_dist(x, adj, generator=generator)
         N, H, F = x.shape[0], self.heads, self.out_features
-        n_out = adj.num_dst_nodes
         h = self.lin(x).view(N, H, F)
-        alpha_src = torch.einsum("nhf,hf->nh", h, self.att_src.to(h.dtype))
-        alpha_dst = torch.einsum("nhf,hf->nh", h, self.att_dst.to(h.dtype))
         mdt = self.message_dtype or x.dtype
         # a_src . h rides the edges in the message dtype, as it rides the
         # same gather as h in the JAX package (gnn_tpu/mp/gat.py:164-169).
-        e = gather_dst_edges(alpha_dst[:n_out], adj).float() + gather_src_edges(
-            alpha_src.to(mdt), adj
-        ).float()
-        e = leaky_relu(e, self.negative_slope)
+        e = gat_scores(h, self.att_src, self.att_dst, adj, self.negative_slope, mdt)
         return attend(self, adj, e, h.to(mdt), generator=generator, return_attention=return_attention)
 
     def _forward_dist(self, x: torch.Tensor, dist, *, generator: Optional[torch.Generator] = None) -> torch.Tensor:

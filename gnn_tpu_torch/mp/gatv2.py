@@ -10,9 +10,9 @@ The LeakyReLU sits inside the dot product, so the score does not split into
 per-node terms as GAT's does: it is one fused op over the edges
 (:func:`~gnn_tpu_torch.ops.cuda.gatv2_score.gatv2_score_edges`, a hand-written
 kernel forward and backward on the card). From the scores on the layer is
-GAT's (:func:`~gnn_tpu_torch.mp.gat.attend`): the per-destination shift,
-``exp``, dropout of the numerator's weights, the numerator on K3 and the
-denominator on K2. Parameter names: ``lin_src.weight`` and
+GAT's (:func:`~gnn_tpu_torch.mp.gat.attend`): the softmax by destination
+(shift, ``exp`` and denominator in one kernel), dropout of the numerator's
+weights and the numerator on K3. Parameter names: ``lin_src.weight`` and
 ``lin_dst.weight`` [H * F, d_in] (no bias), ``att`` [H, F], ``bias``;
 Glorot initialisation as GATConv's. float32.
 

@@ -34,7 +34,7 @@ def dropout(
     keep = 1.0 - rate
     with span("dropout"):
         mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-        out = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+        out = torch.where(mask, x / keep, 0.0)  # a scalar 0: no tensor to allocate and fill
     emit("dropout", x=x, out=out, mask=mask, rate=rate)
     return out
 

@@ -59,6 +59,21 @@ _SIGNATURES = {
     # row_ptr, src, t_row_ptr, t_perm, t_col, ds, h_src, h_dst, att, dh_src, dh_dst, datt,
     # part, part_row, datt_part, n_dst, n_src, n_edges, H, F, slope, vec, stream
     "gnn_gatv2_score_bwd_f32": [_VOID] * 15 + [_INT] * 5 + [_FLOAT, _INT, _VOID],
+    # row_ptr, e, ex, den, part, part_idx, n_rows, n_edges, H, vec, stream
+    "gnn_edge_softmax_f32": [_VOID] * 6 + [_INT] * 4 + [_VOID],
+    # dst, ex, g_ex, g_den, de, n_edges, H, vec, stream
+    "gnn_edge_softmax_bwd_f32": [_VOID] * 5 + [_INT] * 3 + [_VOID],
+    # h, att_src, att_dst, dst, src, a, e, n_nodes, n_edges, H, F, slope, round_src, stream
+    "gnn_gat_score_f32": [_VOID] * 7 + [_INT] * 4 + [_FLOAT, _INT, _VOID],
+    # h, att_src, att_dst, dst, src, a, de, row_ptr, t_row_ptr, t_perm, ds, d_dst, d_src, part,
+    # part_row, n_nodes, n_dst, n_edges, H, F, slope, round_src, stream
+    "gnn_gat_score_bwd_f32": [_VOID] * 15 + [_INT] * 5 + [_FLOAT, _INT, _VOID],
+    # h, att_src, att_dst, d_dst, d_src, dh, datt, datt_part, n_nodes, n_dst, H, F, stream
+    "gnn_gat_score_node_bwd_f32": [_VOID] * 8 + [_INT] * 4 + [_VOID],
+    # n_nodes -> blocks of the backward's datt partials
+    "gnn_gat_datt_parts": [_INT],
+    # p, g, m, v (pointer arrays), sizes, n_leaves, scalars, decoupled, stream
+    "gnn_adam_f32": [_VOID] * 5 + [_INT, _VOID, _INT, _VOID],
 }
 
 

@@ -1,6 +1,6 @@
 """The least time an NVIDIA H100 could take for one call of K1, K2, K3,
-GAT's SDDMM or GATv2's score (forward and backward), from the call's shapes
-alone.
+GAT's SDDMM, GATv2's score or the attention's softmax (forward and
+backward), from the call's shapes alone.
 
 Plain arithmetic on integers: the measurement scripts (``chip_smoke.py``,
 ``tools/profile_gcn_step.py``) set a kernel's measured time beside these
@@ -27,7 +27,7 @@ from dataclasses import dataclass
 __all__ = [
     "H100_BYTES_PER_S", "H100_F32_FLOPS", "H100_BF16_FLOPS", "Bound",
     "csr_spmm_bound", "segment_sum_bound", "csr_spmm_heads_bound", "sddmm_heads_bound", "gatv2_score_bound",
-    "gatv2_score_bwd_bound", "blocked_matvec_bound",
+    "gatv2_score_bwd_bound", "edge_softmax_bound", "edge_softmax_bwd_bound", "blocked_matvec_bound",
     "blocked_layout_cost_ms", "exchange_bound",
 ]
 
@@ -147,6 +147,28 @@ def gatv2_score_bwd_bound(n_dst: int, n_src: int, n_edges: int, H: int, F: int) 
         bytes=fixed + (n_src + n_dst) * W,
         noreuse_bytes=fixed + 2 * max(n_edges, n_src, n_dst) * W + n_edges * H * _WEIGHT_BYTES,
         operations=8 * n_edges * H * F,
+    )
+
+
+def edge_softmax_bound(n_rows: int, n_edges: int, H: int) -> Bound:
+    """The attention's softmax by destination, forward, float32: the scores
+    e [n_edges, H] and ``row_ptr`` in, ex [n_edges, H] and den [n_rows, H]
+    out; a max, a subtract, an exp and an add a score. Nothing is gathered."""
+    moved = (n_rows + 1) * _INDEX_BYTES + 2 * n_edges * H * 4 + n_rows * H * 4
+    return Bound(bytes=moved, noreuse_bytes=moved, operations=4 * n_edges * H)
+
+
+def edge_softmax_bwd_bound(n_rows: int, n_edges: int, H: int) -> Bound:
+    """Its backward: ex and g_ex [n_edges, H], g_den [n_rows, H] and the
+    edges' rows as ``row_ptr`` in, de [n_edges, H] out; an add and a multiply
+    a score. The kernel reads the rows as an int32 ``dst`` [n_edges], the
+    layout it chose, not counted; without reuse g_den's row is read once an
+    edge."""
+    fixed = (n_rows + 1) * _INDEX_BYTES + 3 * n_edges * H * 4
+    return Bound(
+        bytes=fixed + n_rows * H * 4,
+        noreuse_bytes=fixed + max(n_edges, n_rows) * H * 4,
+        operations=2 * n_edges * H,
     )
 
 

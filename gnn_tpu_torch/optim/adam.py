@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gnn_tpu_torch.ops.cuda.adam import adam_update
 from gnn_tpu_torch.optim.base import Optimizer
 
 __all__ = ["Adam", "AdamW"]
@@ -38,9 +39,9 @@ class Adam(Optimizer):
         super().__init__(params, defaults)
 
     def _update(self, group: dict) -> None:
-        # Each term is one foreach op over the group's leaves, with a per-leaf
-        # update's float32 arithmetic on every element, so that a step costs
-        # the host a handful of launches however many leaves the model has.
+        # One update over the group's leaves (ops/cuda/adam.py): a kernel
+        # launch on the card, a handful of foreach ops elsewhere, with a
+        # per-leaf update's float32 arithmetic on every element either way.
         # Leaves are grouped by their step count (a leaf without a gradient
         # skips a step).
         lr, (b1, b2), eps = group["lr"], group["betas"], group["eps"]
@@ -60,22 +61,11 @@ class Adam(Optimizer):
             t = np.float32(step)
             bc1 = float(np.float32(1) - np.float32(b1) ** t)
             bc2 = float(np.float32(1) - np.float32(b2) ** t)
-            gs = [p.grad for p in ps]
-            if wd != 0.0 and not decoupled:
-                gs = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
-            ms = [self.state[p]["exp_avg"] for p in ps]
-            vs = [self.state[p]["exp_avg_sq"] for p in ps]
-            torch._foreach_mul_(ms, b1)
-            torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - b1))
-            torch._foreach_mul_(vs, b2)
-            torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, gs), 1 - b2))
-            den = torch._foreach_div(vs, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, eps)
-            upd = torch._foreach_div(torch._foreach_mul(torch._foreach_div(ms, bc1), -lr), den)
-            if wd != 0.0 and decoupled:
-                torch._foreach_sub_(upd, torch._foreach_mul(ps, lr * wd))
-            torch._foreach_add_(ps, upd)
+            adam_update(
+                ps, [p.grad for p in ps], [self.state[p]["exp_avg"] for p in ps],
+                [self.state[p]["exp_avg_sq"] for p in ps],
+                (b1, 1 - b1, b2, 1 - b2, bc1, bc2, eps, -lr, wd, lr * wd), decoupled,
+            )
 
 
 class AdamW(Adam):

@@ -14,6 +14,11 @@ import torch
 
 from gnn_tpu_torch import graphs as tg
 from gnn_tpu_torch import ops as tops
+from gnn_tpu_torch.ops.cuda.edge_softmax import (
+    edge_softmax, edge_softmax_bwd, edge_softmax_bwd_plain, edge_softmax_parts, edge_softmax_plain,
+)
+from gnn_tpu_torch.ops.cuda.adam import adam_update, adam_update_plain
+from gnn_tpu_torch.ops.cuda.gat_score import gat_score, gat_score_bwd, gat_score_bwd_plain, gat_score_plain
 from gnn_tpu_torch.ops.cuda.gatv2_score import gatv2_score, gatv2_score_bwd, gatv2_score_bwd_plain, gatv2_score_plain
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr, segment_sum_csr_plain
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain
@@ -346,9 +351,12 @@ def test_sddmm_heads_rejects_bad_arguments(cuda_device):
 @pytest.mark.gpu
 def test_gat_on_card_matches_cpu(cuda_device):
     """A training step of the 2-layer GAT (4 heads x 8, then 1 head over 4
-    classes) on the card (K1, K2, K3 and the SDDMM) against the same model on
-    the CPU (plain versions): output, input gradient and every parameter's
-    gradient, and the launches of each, the SDDMM once a layer."""
+    classes) on the card (K1, K2, K3, the SDDMM and the softmax) against the
+    same model on the CPU (plain versions): output, input gradient and every
+    parameter's gradient, and the launches of each: K3 forward and dh, the
+    SDDMM, the softmax's two kernels and the score's two C entries once a
+    layer; K1 and K2 run inside the score's backward entry, not through
+    their own wrappers."""
     from gnn_tpu_torch.models import GAT
 
     adj = _attention_graph("cpu", n=2000)
@@ -356,7 +364,8 @@ def test_gat_on_card_matches_cpu(cuda_device):
     model_cpu = GAT(16, 8, 4, heads=4, dropout=0.0, generator=torch.Generator().manual_seed(0))
     model_gpu = GAT(16, 8, 4, heads=4, dropout=0.0).to(cuda_device)
     model_gpu.load_state_dict(model_cpu.state_dict())
-    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads)
+    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads, edge_softmax, edge_softmax_bwd, gat_score,
+                gat_score_bwd)
     before = tuple(c.launches for c in counters)
     outs = []
     for model, a, xx in ((model_cpu, adj, x), (model_gpu, adj.to(cuda_device), x.to(cuda_device))):
@@ -366,12 +375,81 @@ def test_gat_on_card_matches_cpu(cuda_device):
         outs.append((out.detach().cpu(), xx.grad.cpu(), [p.grad.cpu() for p in model.parameters()]))
     torch.cuda.synchronize()
     after = tuple(c.launches for c in counters)
-    assert tuple(b - a for a, b in zip(before, after)) == (2, 4, 4, 2)
+    assert tuple(b - a for a, b in zip(before, after)) == (0, 0, 4, 2, 2, 2, 2, 2)
     (o_c, dx_c, g_c), (o_g, dx_g, g_g) = outs
     torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-4)
     for a, b in zip(g_g, g_c):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,F", [(8, 8), (1, 40), (3, 5)])
+@pytest.mark.parametrize("round_src", [False, True])
+def test_gat_score_matches_plain_version_on_card(cuda_device, H, F, round_src):
+    """GAT's score forward (node scores and edge scores) and backward (dh and
+    both attention vectors' gradients, through K2 and K1) over the attention
+    graph against the plain versions: each twice bitwise alike, one launch
+    of each a call; rtol 1e-5 forward (the node scores' F products in
+    another order), 1e-4 backward (hub rows sum thousands of terms in
+    another order)."""
+    adj = _attention_graph(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    h = torch.randn(adj.num_src_nodes, H, F, device=cuda_device, generator=gen)
+    att_src, att_dst = (torch.randn(H, F, device=cuda_device, generator=gen) for _ in range(2))
+    de = torch.randn(adj.num_edges, H, device=cuda_device, generator=gen)
+    csr = (adj.dst, adj.src, adj.row_ptr, adj.t_row_ptr, adj.t_perm)
+    before = (gat_score.launches, gat_score_bwd.launches)
+    e, a = gat_score(h, att_src, att_dst, adj.dst, adj.src, 0.2, round_src)
+    again = gat_score(h, att_src, att_dst, adj.dst, adj.src, 0.2, round_src)
+    assert torch.equal(e, again[0]) and torch.equal(a, again[1])
+    want_e, want_a = gat_score_plain(h, att_src, att_dst, adj.dst, adj.src, 0.2, round_src)
+    torch.testing.assert_close(a, want_a, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(e, want_e, rtol=1e-5, atol=1e-5)
+    grads = gat_score_bwd(de, h, att_src, att_dst, *csr, 0.2, round_src)
+    for got, again in zip(grads, gat_score_bwd(de, h, att_src, att_dst, *csr, 0.2, round_src)):
+        assert torch.equal(got, again)
+    for got, want in zip(grads, gat_score_bwd_plain(de, h, att_src, att_dst, *csr, 0.2, round_src)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+    assert (gat_score.launches - before[0], gat_score_bwd.launches - before[1]) == (2, 2)
+    with pytest.raises(ValueError, match="contiguous 1-D int32"):
+        gat_score(h, att_src, att_dst, adj.dst.long(), adj.src)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gat_score(h.double(), att_src.double(), att_dst.double(), adj.dst, adj.src)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decoupled,wd", [(False, 5e-4), (True, 1e-2), (False, 0.0)])
+def test_adam_kernel_matches_foreach_ops_on_card(cuda_device, decoupled, wd):
+    """Adam's one-launch update against its foreach ops over 40 leaves of
+    mixed sizes (two launches of 32 leaves at most), three steps: the
+    moments bitwise, the parameters within an ulp's rounding of the
+    quotients (rtol 1e-6); a launch a call, and the foreach ops for a
+    bfloat16 leaf."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    shapes = [(128, 64), (8, 8), (64,), (1,), (33, 7)] * 8
+    ps = [torch.randn(s, device=cuda_device, generator=gen) for s in shapes]
+    state = [[p.clone() for p in ps], [torch.zeros_like(p) for p in ps], [torch.zeros_like(p) for p in ps]]
+    plain = [[p.clone() for p in ps], [torch.zeros_like(p) for p in ps], [torch.zeros_like(p) for p in ps]]
+    before = adam_update.launches
+    for step in (1, 2, 3):
+        gs = [torch.randn(s, device=cuda_device, generator=gen) for s in shapes]
+        bc1, bc2 = float(np.float32(1) - np.float32(0.9) ** step), float(np.float32(1) - np.float32(0.999) ** step)
+        scalars = (0.9, 1 - 0.9, 0.999, 1 - 0.999, bc1, bc2, 1e-8, -0.005, wd, 0.005 * wd)
+        adam_update(state[0], gs, state[1], state[2], scalars, decoupled)
+        adam_update_plain(plain[0], gs, plain[1], plain[2], scalars, decoupled)
+    torch.cuda.synchronize()
+    assert adam_update.launches - before == 3
+    for got, want in zip(state[1] + state[2], plain[1] + plain[2]):
+        assert torch.equal(got, want)
+    for got, want in zip(state[0], plain[0]):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    half = [torch.randn(4, device=cuda_device).bfloat16()]
+    before = adam_update.launches
+    adam_update(half, [torch.ones_like(half[0])], [torch.zeros_like(half[0])], [torch.zeros_like(half[0])],
+                scalars, decoupled)
+    assert adam_update.launches == before
 
 
 # (H, F) of GATv2's score on the card: the benchmark's two layers (8, 8) and
@@ -470,14 +548,97 @@ def test_gatv2_score_rejects_bad_arguments(cuda_device):
         gatv2_score_bwd(torch.ones(3, 4, device=cuda_device), h, h, att, dst, src, dst, src, dst)
 
 
+# Heads of the softmax on the card: the benchmark's two layers (8 and 1), the
+# scalar path (3), and rows wider than one pass of a warp (40 scalar, 160
+# vector)
+_SOFTMAX_HEADS = (8, 1, 3, 40, 160)
+
+
+def _check_edge_softmax(row_ptr, dst, e):
+    """The softmax's kernels on the card, each twice (bitwise equal: no
+    atomics; the forward without a sync), against their plain versions,
+    one launch of each a call. ex
+    and de repeat the plain arithmetic, the same max included (rtol 1e-6,
+    an exp apart). den sums a row in another order, and a row cut by a warp
+    boundary from segments taken with their own max: it is held to the
+    float64 sum of the plain version's ex (rtol 1e-5; the plain version's
+    own float32 index_add_ strays 1.5e-5 over the 60,000-edge hub)."""
+    before = (edge_softmax.launches, edge_softmax_bwd.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ex, den = edge_softmax(e, row_ptr)
+        again = edge_softmax(e, row_ptr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(ex, again[0]) and torch.equal(den, again[1])
+    want_ex, _ = edge_softmax_plain(e, row_ptr)
+    torch.testing.assert_close(ex, want_ex, rtol=1e-6, atol=1e-30)
+    want_den = torch.zeros(den.shape, dtype=torch.float64, device=den.device)
+    want_den = want_den.index_add_(0, dst.long(), want_ex.double()).clamp_min(1e-16)
+    torch.testing.assert_close(den.double(), want_den, rtol=1e-5, atol=1e-30)
+    g_ex, g_den = torch.randn_like(ex), torch.randn_like(den)  # signed, as the step's are
+    de = edge_softmax_bwd(ex, g_ex, g_den, dst)
+    assert torch.equal(de, edge_softmax_bwd(ex, g_ex, g_den, dst))
+    torch.testing.assert_close(de, edge_softmax_bwd_plain(ex, g_ex, g_den, dst), rtol=1e-6, atol=1e-30)
+    torch.cuda.synchronize()
+    edges = int(dst.numel() > 0)
+    assert (edge_softmax.launches - before[0], edge_softmax_bwd.launches - before[1]) == (2, 2 * edges)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["power-law"] + list(_SKEWED_DEGREES))
+def test_edge_softmax_matches_plain_version_on_card(cuda_device, layout):
+    """The softmax by destination forward and backward over the GAT
+    adjacency of a power-law graph (where scores off the vector-load
+    boundary also take the scalar path) and over the hand-made CSRs: empty
+    rows, a 60,000-edge hub that spans many CTAs' tiles, rows that end on a
+    tile boundary, no edges. The scores span +-30."""
+    rng = np.random.default_rng(5)
+    as_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+    if layout == "power-law":
+        adj = _attention_graph(cuda_device)
+        row_ptr, dst = adj.row_ptr, adj.dst
+    else:
+        deg = np.asarray(_SKEWED_DEGREES[layout])
+        row_ptr = as_dev(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+        dst = as_dev(np.repeat(np.arange(deg.size), deg).astype(np.int32))
+    for H in _SOFTMAX_HEADS:
+        e = as_dev(rng.uniform(-30, 30, size=(dst.numel(), H)).astype(np.float32))
+        _check_edge_softmax(row_ptr, dst, e)
+        if layout == "power-law" and H % 4 == 0:
+            _check_edge_softmax(row_ptr, dst, _misaligned(dst.numel(), H, torch.float32, cuda_device).mul_(30))
+
+
+@pytest.mark.gpu
+def test_edge_softmax_rejects_bad_arguments(cuda_device):
+    row_ptr = torch.tensor([0, 1, 2], dtype=torch.int32, device=cuda_device)
+    dst = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    e = torch.randn(2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        edge_softmax(e.bfloat16(), row_ptr)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        edge_softmax(e.t().contiguous().t(), row_ptr)
+    with pytest.raises(ValueError, match="row_ptr is on cpu"):
+        edge_softmax(e, row_ptr.cpu())
+    with pytest.raises(ValueError, match="row_ptr must be a contiguous 1-D int32"):
+        edge_softmax(e, row_ptr.long())
+    adj = _attention_graph(cuda_device, n=50)
+    with pytest.raises(ValueError, match="edge scores"):
+        edge_softmax_parts(torch.randn(adj.num_edges + 1, 8, device=cuda_device), adj)
+    with pytest.raises(ValueError, match="g_den is on cpu"):
+        edge_softmax_bwd(e, e, e.cpu(), dst)
+    with pytest.raises(ValueError, match="one entry an edge"):
+        edge_softmax_bwd(e, e, e, dst[:1])
+
+
 @pytest.mark.gpu
 def test_gatv2_on_card_matches_cpu(cuda_device):
     """A training step of the 2-layer GATv2 (4 heads x 8, then 1 head over 4
     classes) on the card against the same model on the CPU (plain
     versions): output, input gradient and every parameter's gradient, and
-    the launches: the score's forward and backward once a layer, K3 and the
-    SDDMM as in GAT, K2 for the denominator only, K1 not at all (the score
-    gathers nothing whose VJP it would run)."""
+    the launches: the score's forward and backward once a layer, K3, the
+    SDDMM and the softmax as in GAT, K1 and K2 not at all (the score gathers
+    nothing whose VJP would run them)."""
     from gnn_tpu_torch.models import GATv2
 
     adj = _attention_graph("cpu", n=2000)
@@ -485,7 +646,8 @@ def test_gatv2_on_card_matches_cpu(cuda_device):
     model_cpu = GATv2(16, 8, 4, heads=4, dropout=0.0, generator=torch.Generator().manual_seed(0))
     model_gpu = GATv2(16, 8, 4, heads=4, dropout=0.0).to(cuda_device)
     model_gpu.load_state_dict(model_cpu.state_dict())
-    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads, gatv2_score, gatv2_score_bwd)
+    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads, gatv2_score, gatv2_score_bwd, edge_softmax,
+                edge_softmax_bwd)
     outs = []
     for model, a, xx in ((model_cpu, adj, x), (model_gpu, adj.to(cuda_device), x.to(cuda_device))):
         before = tuple(c.launches for c in counters)
@@ -495,7 +657,7 @@ def test_gatv2_on_card_matches_cpu(cuda_device):
         outs.append((out.detach().cpu(), xx.grad.cpu(), [p.grad.cpu() for p in model.parameters()]))
         torch.cuda.synchronize()
         launches = tuple(c.launches - b for c, b in zip(counters, before))
-    assert launches == (0, 2, 4, 2, 2, 2)
+    assert launches == (0, 0, 4, 2, 2, 2, 2, 2)
     (o_c, dx_c, g_c), (o_g, dx_g, g_g) = outs
     torch.testing.assert_close(o_g, o_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dx_g, dx_c, rtol=1e-4, atol=1e-4)
@@ -656,9 +818,10 @@ def test_forward_sampled_on_card_matches_cpu(cuda_device, name):
     logits and parameter gradients (float32, rtol=atol=1e-4), with the
     kernels launched as the hops ask: SAGE mean and GIN K1 2 forward + 1 dx
     (the first hop's input is gathered data); GAT, per hop, K3 forward and
-    dh (the first hop's too: its input is ``lin``'s output), K2 for the
-    denominator and for the destination gather's VJP, K1 for the source
-    gather's VJP, and the SDDMM."""
+    dh (the first hop's too: its input is ``lin``'s output), the SDDMM, the
+    softmax forward and backward and the score's C entries forward and
+    backward (its backward runs K2 and K1 inside, not through their
+    wrappers)."""
     from gnn_tpu_torch.graphs import NeighborSampler
     from gnn_tpu_torch.models import GAT, GIN, GraphSAGE
 
@@ -669,14 +832,16 @@ def test_forward_sampled_on_card_matches_cpu(cuda_device, name):
         "gat": lambda gen: GAT(12, 8, 4, heads=4, dropout=0.0, generator=gen),
         "gin": lambda gen: GIN(12, 32, 4, num_layers=2, generator=gen),
     }[name]
-    want = {"sage": (3, 0, 0, 0), "sage-max": (0, 0, 0, 0), "gat": (2, 4, 4, 2), "gin": (3, 0, 0, 0)}[name]
+    want = {"sage": (3, 0, 0, 0, 0, 0, 0, 0), "sage-max": (0, 0, 0, 0, 0, 0, 0, 0), "gat": (0, 0, 4, 2, 2, 2, 2, 2),
+            "gin": (3, 0, 0, 0, 0, 0, 0, 0)}[name]
     sampler = NeighborSampler(data, [5, 3])
     nodes, adjs = sampler.sample(torch.Generator().manual_seed(0), torch.arange(64))
     cpu = make(torch.Generator().manual_seed(0))
     gpu = make(None).to(cuda_device)
     gpu.load_state_dict(cpu.state_dict())
     on_card = sampler.to(cuda_device)
-    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads)
+    counters = (csr_spmm, segment_sum_csr, csr_spmm_heads, sddmm_heads, edge_softmax, edge_softmax_bwd, gat_score,
+                gat_score_bwd)
     before = tuple(c.launches for c in counters)
     out_gpu = gpu.forward_sampled(data.x[nodes].to(cuda_device), on_card.adjacencies(64))
     out_gpu.square().sum().backward()

@@ -36,15 +36,16 @@ def _program(model: str, num_layers: int, seed: int = 1, **train):
 
 
 def _gat_spans(layers: int, input_dropout: bool) -> dict:
-    """A GAT step's spans: per layer the two score gathers, the softmax's
-    max, K3 and the denominator (K2) forward; K3's backward with its SDDMM,
-    the denominator's VJP and the gathers' VJPs (K1 and K2, each inside its
-    caller's span and no other); the attention dropout, and the input
-    dropout on the full graph."""
+    """A GAT step's spans: per layer the edge score (both node scores
+    gathered, added and through LeakyReLU in one op), the softmax (shift,
+    exp and denominator in one op) and K3 forward; K3's backward with its
+    SDDMM, the softmax's backward and the score's backward (its kernel, K2
+    and K1, each inside that span and no other); the attention dropout, and
+    the input dropout on the full graph."""
     return {
-        "agg.gather_dst_edges": layers, "agg.gather_src_edges": layers, "agg.edge_aggregate_max": layers,
-        "agg.spmm_heads": layers, "agg.segment_sum_edges": layers, "agg.spmm_heads.bwd": layers, "spmm_heads.dw": layers, "agg.edge_aggregate.bwd": layers,
-        "agg.gather_dst_edges.bwd": layers, "agg.gather_src_edges.bwd": layers,
+        "agg.gat_score": layers, "agg.edge_softmax": layers,
+        "agg.spmm_heads": layers, "agg.spmm_heads.bwd": layers, "spmm_heads.dw": layers, "agg.edge_softmax.bwd": layers,
+        "agg.gat_score.bwd": layers,
         "dropout": 2 * layers if input_dropout else layers,
         "optim.step": 1, "optim.zero_grad": 1,
     }
