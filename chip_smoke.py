@@ -43,16 +43,11 @@ one PyTorch call computes the same function, that call's time
 (``library_ms``: ``torch.sparse.mm`` on a CSR tensor for K1 and for K3, whose
 H heads become one [N H, N H] CSR of E H entries, ``torch.segment_reduce``
 for K2; held to the kernel's result, used nowhere in the port). Phase
-1-blocked builds the clustered arxiv-scale graph (``clustered_power_law``,
-the recipe of bench.py's blocked workload) with ``reorder='cluster'`` twice,
-at 256-row float32 and 512-row bfloat16 windows, and holds
-``blocked_matvec`` (the block product plus K1 over the remainder CSR)
-forward and transpose at F in {256, 40} against its plain version, the
-float32 one also against K1 and ``torch.sparse.mm`` over the whole relabelled
-CSR, with times of all; its ``bound_ms`` is that of the function (A @ x over
-every edge), and ``layout_cost_ms`` beside it is what the dense blocks ask
-for; two lines then set K1's F=256 time and K3's (8, 32) time on the two
-graphs beside their edge counts and longest rows. Phase 1-hop holds the
+1-clustered builds the clustered arxiv-scale graph (``clustered_power_law``)
+with ``reorder='cluster'`` (the community order in 256-row windows) and
+times K1 forward at F=256 and K3 forward at (8, 32) over its CSR, each held
+to its plain version and a second call; two lines then set those times on
+the two graphs beside their edge counts and longest rows. Phase 1-hop holds the
 kernels over the bipartite CSRs of neighbour-sampled hops (every row exactly
 ``fanout`` edges long, ``col`` contiguous; the transpose with one edge a row
 behind a run of empty rows) of batch 1024, at every shape the sampled phases
@@ -96,7 +91,8 @@ phase 2-gat trains the GAT (2 layers, 8 heads x 32, 1 output head over 40
 classes) for 5 epochs there, and phase 2-gatv2 the GATv2 of the benchmark
 (2 layers, 8 heads x 8, then 1 head); phase 2-cluster trains the GCN on the clustered
 graph twice with the same seeds, with ``train.reorder='cluster'`` (the
-blocked layout) and ``'auto'`` (the CSR). Phases 2-encoder, 2-sage and 2-gin
+community order) and ``'auto'`` (the degree-bucket order), K1 over the CSR
+in both. Phases 2-encoder, 2-sage and 2-gin
 train, 5 epochs each on the power-law graph, the reference's flagship
 EncoderGCN (pre-MLP 128 -> 256 -> 128, two mid-block convs at 128, post-MLP
 to 40 classes; Adam), GraphSAGE (3 x 256, mean; Adam) and GIN (3 x 256; SGD
@@ -137,9 +133,10 @@ path (the loss's and the accuracies' counts, BatchNorm's statistics and the
 gradients all-reduced): losses and final parameters and buffers equal phase
 2-dist's in-process fit bit for bit, with the step time beside it and the
 all-reduces an epoch with their CUDA-event ms. Phase 3 checks the kernel
-path against the CPU path on a small graph for GCN, GAT, the blocked GCN,
-EncoderGCN (with its BatchNorm buffers), GraphSAGE (mean and max) and GIN,
-trains the Kipf GCN (on the CSR and on the blocked layout) and the GAT
+path against the CPU path on a small graph for GCN, GAT, the GCN on the
+community order, EncoderGCN (with its BatchNorm buffers), GraphSAGE (mean
+and max) and GIN, trains the Kipf GCN (under the degree-bucket and the
+community order) and the GAT
 recipes on ``cora_like`` into their accuracy bands, and runs the CLI for
 every model and for SGD with clipping; it also holds ``forward_sampled``
 on the card to the CPU for one node list, runs the CLI on sampled
@@ -179,7 +176,6 @@ import torch
 
 from gnn_tpu_torch import native
 from gnn_tpu_torch.graphs import Data, build_adjacency, gcn_norm, power_law, to_undirected
-from gnn_tpu_torch.graphs.blocked import _diag_product, blocked_matvec, blocked_matvec_plain
 from gnn_tpu_torch.graphs.generate import clustered_power_law, cora_like, stochastic_block_model
 from gnn_tpu_torch.graphs.sampling import NeighborSampler, hop_adjacencies
 from gnn_tpu_torch.graphs.streaming import DistEdgeStream, EdgeStream, streaming_spmm, streaming_spmm_grad
@@ -205,10 +201,6 @@ IN_FEATURES, NUM_CLASSES = 128, 40
 WIDTHS = (40, 128, 256)
 GAT_HEADS = ((8, 32), (1, 40))  # (H, F) of the hidden and the output layer
 UNWEIGHTED_WIDTHS = (128, 256)  # K1 with a null weight: GIN's input and hidden widths
-# (block_rows, block dtype) of phase 1-blocked: fit's default, and the
-# configuration of bench.py's blocked workload
-BLOCKED_CONFIGS = ((256, None), (512, torch.bfloat16))
-BLOCKED_WIDTHS = (256, 40)
 # Neighbour-sampled minibatches: the batch, and the fanouts of the GraphSAGE
 # (3 layers) and of the GAT and host-feature (2 layers) paths
 SAMPLED_BATCH = 1024
@@ -265,18 +257,11 @@ KERNELS = {
         source="gnn_tpu_torch/csrc/edge_softmax.cu",
         replaces="none: XLA's VJP of the same",
     ),
-    # A composition, not a kernel of its own: torch.bmm (the library) over the
-    # dense blocks, then K1 over the remainder CSR
-    "blocked_matvec": dict(
-        source="gnn_tpu_torch/graphs/blocked.py",
-        replaces="gnn_tpu/graphs/blocked.py:603",
-        composition="torch.bmm over the dense blocks + csr_spmm (gnn_tpu_torch/csrc/csr_spmm.cu) over the remainder",
-    ),
 }
 COUNTERS = {
     "csr_spmm": csr_spmm, "segment_sum_csr": segment_sum_csr, "csr_spmm_heads": csr_spmm_heads,
     "sddmm_heads": sddmm_heads, "gatv2_score": gatv2_score, "gatv2_score_bwd": gatv2_score_bwd,
-    "edge_softmax": edge_softmax, "edge_softmax_bwd": edge_softmax_bwd, "blocked_matvec": blocked_matvec,
+    "edge_softmax": edge_softmax, "edge_softmax_bwd": edge_softmax_bwd,
     "gat_score": gat_score, "gat_score_bwd": gat_score_bwd,
 }
 
@@ -331,7 +316,7 @@ def arxiv_scale_edges() -> np.ndarray:
 
 
 def clustered_edges() -> np.ndarray:
-    """The clustered arxiv-scale graph (bench.py's blocked workload), undirected."""
+    """The clustered arxiv-scale graph, undirected."""
     ei = clustered_power_law(N_NODES, E_DIRECTED, avg_community=200, intra_frac=0.85, seed=0)
     ei, _ = to_undirected(ei, num_nodes=N_NODES)
     return ei
@@ -535,85 +520,26 @@ def log_by_graph(label: str, stats: dict) -> None:
         f"max in-degree ratio {pl['max_in_degree'] / cl['max_in_degree']:.3f}")
 
 
-def phase1_blocked(edges: np.ndarray, dev, results, by_graph) -> None:
-    """blocked_matvec (the block product, then K1 over the remainder CSR)
-    against its plain version, forward and transpose, at the GCN's widths;
-    the float32 configuration also against K1 over the whole relabelled CSR
-    of the same graph. Times: blocked, its plain version, the block product
-    alone, K1 over the remainder alone (beside its bound), and K1 over the
-    whole CSR; K3's (8, 32) forward over that CSR is held against its plain
-    version and timed for the by-graph line."""
+def phase1_clustered(edges: np.ndarray, dev, by_graph) -> None:
+    """K1's forward at F=256 and K3's at (8, 32) over the CSR of the
+    clustered graph in its community order (``reorder='cluster'``), each
+    held to its plain version and a second call, then timed for the
+    by-graph lines."""
     ei, w = gcn_norm(edges, num_nodes=N_NODES, self_loops=True)
+    t0 = time.perf_counter()
+    adj = build_adjacency(ei, w, num_nodes=N_NODES, reorder="cluster").to(dev)
+    log(f"phase1-clustered reorder='cluster': layout {adj.layout}, max_in_degree="
+        f"{int(adj.row_ptr.diff().max())}, prep_s={time.perf_counter() - t0:.2f}")
     gen = torch.Generator(device=dev).manual_seed(2)
-    for rows, block_dtype in BLOCKED_CONFIGS:
-        t0 = time.perf_counter()
-        adj = build_adjacency(ei, w, num_nodes=N_NODES, reorder="cluster", block_rows=rows,
-                              block_dtype=block_dtype)
-        prep = time.perf_counter() - t0
-        adj = adj.to(dev)
-        cfg = f"R={rows} {str(adj.blocked.diag.dtype).removeprefix('torch.')}"
-        for name in ("blocked", "t_blocked"):
-            lay = getattr(adj, name)
-            dense = lay.num_dense_edges
-            log(f"phase1-blocked {cfg} {name}: windows={lay.num_blocks} dense_edges={dense} "
-                f"({dense / adj.num_edges:.1%}) remainder_edges={lay.num_rem_edges} "
-                f"max_remainder_in_degree={int(lay.rem_row_ptr.diff().max())} "
-                f"max_in_degree={int(adj.row_ptr.diff().max())} prep_s={prep:.2f}")
-        for F in BLOCKED_WIDTHS:
-            x = torch.randn(N_NODES, F, generator=gen, device=dev)
-            g = torch.randn(N_NODES, F, generator=gen, device=dev)
-            cases = (
-                ("fwd A@x", adj.blocked, x, (adj.row_ptr, adj.src, adj.weight)),
-                ("dx=A^T g", adj.t_blocked, g, (adj.t_row_ptr, adj.t_col, adj.t_weight)),
-            )
-            for what, lay, v, csr in cases:
-                tag = f"{cfg} F={F} {what}"
-                got = blocked_matvec(lay, v)
-                err = compare(f"blocked_matvec {tag}", got, blocked_matvec_plain(lay, v), torch.float32)
-                ms = time_ms(lambda: blocked_matvec(lay, v))
-                plain_ms = time_ms(lambda: blocked_matvec_plain(lay, v))
-                xw = torch.nn.functional.pad(v, (0, 0, 0, lay.diag.shape[0] * rows - N_NODES))
-                xw = xw.view(-1, rows, F).to(lay.diag.dtype)
-                diag_ms = time_ms(lambda: _diag_product(lay.diag, xw))
-                rem_ms = time_ms(lambda: csr_spmm(lay.rem_row_ptr, lay.rem_src, lay.rem_w, v))
-                rem_bound = bounds.csr_spmm_bound(N_NODES, N_NODES, lay.num_rem_edges, F, v.element_size())
-                # The function's bound (A @ x over every edge) and, beside it, what the
-                # layout asks for: every block entry multiplied, zero or not.
-                bound = bounds.blocked_matvec_bound(N_NODES, adj.num_edges, F, v.element_size())
-                layout_ms = bounds.blocked_layout_cost_ms(
-                    lay.num_blocks, rows, lay.diag.element_size(), N_NODES, lay.num_rem_edges, F, v.element_size())
-                line = (f"phase1-blocked {tag:28s} max_abs_err={err:.3e} blocked_ms={ms:.4f} "
-                        f"plain_ms={plain_ms:.4f} bound_ms={bound.bound_ms:.4f} ({bound.bound_by}) "
-                        f"layout_cost_ms={layout_ms:.4f} bmm_ms={diag_ms:.4f} k1_remainder_ms={rem_ms:.4f} "
-                        f"k1_remainder_bound_ms={rem_bound.bound_ms:.4f} "
-                        f"k1_remainder_noreuse_ms={rem_bound.noreuse_ms:.4f}")
-                lib = None
-                if block_dtype is None:
-                    a_csr = sparse_csr(*csr, N_NODES)
-                    lib = library_ms(f"blocked_matvec {tag}", lambda: torch.sparse.mm(a_csr, v), got)
-                    line += f" library_ms={lib:.4f}"
-                    full = csr_spmm(*csr, v)
-                    err_csr = compare(f"blocked_matvec vs full-CSR K1 {tag}", got, full, torch.float32)
-                    check_repeat(f"full-CSR K1 {tag}", csr_spmm, (*csr, v), full)
-                    csr_ms = time_ms(lambda: csr_spmm(*csr, v))
-                    line += f" k1_full_csr_ms={csr_ms:.4f} err_vs_full_csr={err_csr:.3e}"
-                    if F == 256 and lay is adj.blocked:
-                        by_graph["K1"]["clustered"] = graph_stats(adj, csr_ms)
-                        by_graph["K3"]["clustered"] = graph_stats(adj, k3_forward_ms(adj, v, gen))
-                log(line)
-                results["csr_spmm"]["rows"].append(dict(
-                    F=F, dtype="torch.float32", what=f"blocked {what} {cfg}", err=err, ms=ms, plain_ms=plain_ms,
-                ))
-                results["csr_spmm"]["errs"].append(err)
-                results["blocked_matvec"]["rows"].append(dict(
-                    F=F, dtype="torch.float32", what=f"{what} {cfg}", err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound.bound_ms, bound_by=bound.bound_by, noreuse_ms=bound.noreuse_ms, library_ms=lib,
-                    layout_cost_ms=layout_ms,
-                ))
-                results["blocked_matvec"]["errs"].append(err)
-            del x, g
-        del adj
-        torch.cuda.empty_cache()
+    x = torch.randn(N_NODES, 256, generator=gen, device=dev)
+    args = (adj.row_ptr, adj.src, adj.weight, x)
+    got = csr_spmm(*args)
+    compare("csr_spmm fwd, clustered graph", got, csr_spmm_plain(*args), torch.float32)
+    check_repeat("csr_spmm fwd, clustered graph", csr_spmm, args, got)
+    by_graph["K1"]["clustered"] = graph_stats(adj, time_ms(lambda: csr_spmm(*args)))
+    by_graph["K3"]["clustered"] = graph_stats(adj, k3_forward_ms(adj, x, gen))
+    del adj, x, got
+    torch.cuda.empty_cache()
 
 
 def k3_forward_ms(adj, x2: torch.Tensor, gen) -> float:
@@ -1297,7 +1223,7 @@ def phase2_gat(data: Data, dev) -> tuple:
     cfg = arxiv_gat_config()
     n = cfg.train.epochs * cfg.model.num_layers
     want = {"csr_spmm_heads": 3 * n, "sddmm_heads": n, "edge_softmax": 2 * n, "edge_softmax_bwd": n,
-            "gat_score": 2 * n, "gat_score_bwd": n, "blocked_matvec": 0}
+            "gat_score": 2 * n, "gat_score_bwd": n}
     return train_phase("phase2-gat", cfg, data, dev, want, want_perm=True)
 
 
@@ -1398,7 +1324,7 @@ def phase2_sampled_gat(data: Data, dev) -> tuple:
     cfg = arxiv_sampled_config("gat", GAT_FANOUTS, steps=20)
     n = cfg.train.epochs * cfg.model.num_layers
     want = {"csr_spmm_heads": 3 * n, "sddmm_heads": n, "edge_softmax": 2 * n, "edge_softmax_bwd": n,
-            "gat_score": 2 * n, "gat_score_bwd": n, "blocked_matvec": 0}
+            "gat_score": 2 * n, "gat_score_bwd": n}
     return train_phase("phase2-sampled-gat", cfg, data, dev, want, falling=True, want_perm=False)
 
 
@@ -1435,20 +1361,16 @@ def phase2_host(edges: np.ndarray, dev) -> tuple:
 
 def phase2_cluster(data: Data, dev) -> dict:
     """The GCN on the clustered graph through ``fit``, with the same seeds,
-    first with ``train.reorder='cluster'``: each blocked product (3 layers x
-    forward, dx and evaluation) is one blocked_matvec, which launches K1
-    once over its remainder; then with ``'auto'``, K1 over the CSR
-    relabelled by degree bucket."""
+    first with ``train.reorder='cluster'`` (the community order), then with
+    ``'auto'`` (the degree-bucket order): K1 over the relabelled CSR once a
+    layer forward, dx and evaluation in both."""
     n = arxiv_gcn_config().train.epochs * arxiv_gcn_config().model.num_layers
     out = {}
-    for reorder, want in (
-        ("cluster", {"csr_spmm": 3 * n, "segment_sum_csr": 0, "csr_spmm_heads": 0, "sddmm_heads": 0,
-                     "blocked_matvec": 3 * n}),
-        ("auto", k1_only(3 * n)),
-    ):
+    for reorder in ("cluster", "auto"):
         cfg = arxiv_gcn_config()
         cfg.train.reorder = reorder
-        out[reorder] = train_phase(f"phase2-cluster reorder={reorder}", cfg, data, dev, want, want_perm=True)
+        out[reorder] = train_phase(f"phase2-cluster reorder={reorder}", cfg, data, dev, k1_only(3 * n),
+                                   want_perm=True)
     return out
 
 
@@ -1910,10 +1832,10 @@ def phase3(dev) -> None:
     card_vs_cpu("GAT", lambda gen: GAT(data.num_features, 8, 4, heads=4, dropout=0.0, generator=gen),
                 data, adj_cpu, dev)
     adj_cluster = data.to_adjacency(norm="sym", reorder="cluster", block_rows=64)
-    before = blocked_matvec.launches
-    card_vs_cpu("blocked GCN", gcn, data.permute_nodes(adj_cluster.perm), adj_cluster, dev)
-    if blocked_matvec.launches - before != 9:  # 3 layers: forward, dx, the checked forward
-        raise AssertionError(f"phase3: blocked_matvec launched {blocked_matvec.launches - before} times, not 9")
+    before = csr_spmm.launches
+    card_vs_cpu("GCN on the community order", gcn, data.permute_nodes(adj_cluster.perm), adj_cluster, dev)
+    if csr_spmm.launches - before != 9:  # 3 layers: forward, dx, the checked forward
+        raise AssertionError(f"phase3: the community-order GCN launched K1 {csr_spmm.launches - before} times, not 9")
 
     F = data.num_features
     before = csr_spmm.launches
@@ -1933,7 +1855,7 @@ def phase3(dev) -> None:
         raise AssertionError(f"phase3: GIN launched K1 {csr_spmm.launches - before} times, not 8")
 
     kipf_band(dev)  # the default train.reorder='auto': cora_like relabelled by degree bucket
-    kipf_band(dev, reorder="cluster")
+    kipf_band(dev, reorder="cluster")  # relabelled by community, K1 over the CSR as well
 
     # The GAT Cora recipe; gnn_tpu.train.fit reaches 0.823 with it on the
     # CPU, and the band is that +- 0.05 (tests/test_torch_gat.py).
@@ -1962,7 +1884,8 @@ def phase3(dev) -> None:
 
     # Sampled minibatches at small size: card against CPU, the CLI, resume.
     sampled_card_vs_cpu("GraphSAGE", lambda gen: GraphSAGE(F, 32, 4, dropout=0.0, generator=gen), data, dev, (3, 0, 0))
-    sampled_card_vs_cpu("GAT", lambda gen: GAT(F, 8, 4, heads=4, dropout=0.0, generator=gen), data, dev, (2, 2, 4))
+    # GAT's K1 and K2 run inside the score's backward C entry (gat_score_bwd), which their counters do not see
+    sampled_card_vs_cpu("GAT", lambda gen: GAT(F, 8, 4, heads=4, dropout=0.0, generator=gen), data, dev, (0, 0, 4))
     sampled_card_vs_cpu("GIN", lambda gen: GIN(F, 32, 4, num_layers=2, generator=gen), data, dev, (3, 0, 0))
     for name in ("sage", "gat", "gin"):
         flags = ["--model.name", name, "--train.batch_size", "64", "--train.fanouts", "[4,4]"]
@@ -1980,7 +1903,7 @@ def phase3(dev) -> None:
 
 # -- graph-partition parallelism: P parts on the one card --------------------
 
-DIST_PARTS, DIST_F, DIST_GAT_WIDTH, DIST_BLOCK = 4, 256, 8 * 32 + 8, 256
+DIST_PARTS, DIST_F, DIST_GAT_WIDTH = 4, 256, 8 * 32 + 8
 
 
 def counted(fn) -> tuple:
@@ -2132,31 +2055,6 @@ def dist_edge_rows(dist, adj_single, dev) -> dict:
     return row
 
 
-def phase1_dist_blocked(clustered: np.ndarray, dev) -> dict:
-    """local_blocked=256 on the clustered graph: its community order packed
-    into 256-row windows, 4 parts, halo 'overlap' with the dense blocks."""
-    from gnn_tpu_torch.graphs import cluster_order
-    from gnn_tpu_torch.parallel import make_mesh, partition_graph
-
-    t0 = time.perf_counter()
-    perm = cluster_order(clustered, N_NODES, pack_rows=DIST_BLOCK)
-    old2new = np.empty(N_NODES, np.int64)
-    old2new[perm] = np.arange(N_NODES)
-    ei, w = gcn_norm(old2new[clustered], num_nodes=N_NODES, self_loops=True)
-    mesh = make_mesh((DIST_PARTS,), ("data",), devices=[dev] * DIST_PARTS)
-    dist = partition_graph(ei, w, num_nodes=N_NODES, mesh=mesh, halo="overlap", local_blocked=DIST_BLOCK)
-    adj_single = build_adjacency(ei, w, num_nodes=N_NODES).to(dev)
-    dense = int(dist.diag.count_nonzero())
-    log(f"phase1-dist local_blocked={DIST_BLOCK}: cluster order + partition {time.perf_counter() - t0:.1f} s; "
-        f"{dense} of {ei.shape[1]} edges in the blocks ({dense / ei.shape[1]:.4f})")
-    gen = torch.Generator(device=dev).manual_seed(7)
-    x = torch.randn(N_NODES, DIST_F, device=dev, generator=gen)
-    g = torch.randn(N_NODES, DIST_F, device=dev, generator=gen)
-    row = dist_spmm_rows(f"phase1-dist spmm_dist overlap local_blocked={DIST_BLOCK}", dist, adj_single, ei, x, g, dev)
-    row["dense_share"] = dense / ei.shape[1]
-    return row
-
-
 def dist_config(cfg: Config, **dist) -> Config:
     cfg.model.dropout = 0.0
     cfg.dist.num_parts = DIST_PARTS
@@ -2195,7 +2093,7 @@ def phase2_dist(data: Data, dev, finals: dict) -> dict:
         # backward K2 (gather_dst's VJP) and K1 twice (incidence, send), and
         # the evaluation's forward K2
         ("gat", arxiv_gat_config,
-         {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "sddmm_heads": 0, "blocked_matvec": 0}),
+         {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "sddmm_heads": 0}),
         ("encoder_gcn", encoder_sgd_config, k1_only(30)),
     ):
         single = dist_config(make())
@@ -2421,8 +2319,7 @@ def main() -> int:
     clustered = clustered_edges()
     log(f"clustered graph: {N_NODES} nodes, {clustered.shape[1]} undirected edges, "
         f"generated in {time.perf_counter() - t0:.1f} s")
-    phase1_blocked(clustered, dev, checks, by_graph)
-    log(f"phase1-dist local_blocked row: {json.dumps(phase1_dist_blocked(clustered, dev))}")
+    phase1_clustered(clustered, dev, by_graph)
     log_by_graph("K1 F=256 fwd", by_graph["K1"])
     log_by_graph(f"K3 (H,F)={GAT_HEADS[0]} fwd", by_graph["K3"])
     data = arxiv_scale_data(edges)
@@ -2453,7 +2350,7 @@ def main() -> int:
     # The row each kernel's times come from: its widest main-path shape, on
     # the relabelled graph that fit's default order trains on. ms_id_order is
     # the same call's time in id order, the row these times came from before
-    # fit relabelled (None for blocked_matvec, whose graph is always packed).
+    # fit relabelled.
     main_rows = {
         "csr_spmm": dict(F=256, what="fwd A@x", graph="relabelled"),
         "segment_sum_csr": dict(H=8, what="den [E,8]", graph="relabelled"),
@@ -2463,7 +2360,6 @@ def main() -> int:
         "gatv2_score_bwd": dict(H=8, F=8, what="ds", aligned=True),
         "edge_softmax": dict(H=8, what="ex, den [E,8]"),
         "edge_softmax_bwd": dict(H=8, what="de [E,8]"),
-        "blocked_matvec": dict(F=256, what="fwd A@x R=256 float32"),
     }
     entries = []
     for name, meta in KERNELS.items():
@@ -2579,7 +2475,7 @@ def cards_dp_config() -> Config:
 CARDS_FITS = (
     ("gcn", arxiv_gcn_config, k1_only(45)),
     ("gat", arxiv_gat_config,
-     {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "sddmm_heads": 0, "blocked_matvec": 0}),
+     {"csr_spmm": 20, "segment_sum_csr": 30, "csr_spmm_heads": 0, "sddmm_heads": 0}),
     ("encoder_gcn", encoder_sgd_config, k1_only(30)),
 )
 

@@ -78,7 +78,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     dividing ``n_devices``), ``n_devices / W`` of them on each process's
     ``device``, every loss and gradient summed over the group. ``fit``
     of the GCN with halo 'alltoall', again with ``dist.local_blocked=8`` (the
-    community order, halo 'overlap'), the flagship ``encoder_gcn``
+    community order in windows of 8, halo 'overlap'), the flagship ``encoder_gcn``
     (mask-aware BatchNorm), a distributed GAT's loss and gradient and a
     distributed GIN's loss; the streamed aggregation of the same graph with
     its edges and features on the host (``DistEdgeStream``, chunks of 64

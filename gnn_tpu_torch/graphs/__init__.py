@@ -1,8 +1,8 @@
 """Graph data, host-side prep, the CSR adjacency the kernels read, the
-cluster-blocked layout, converters and the minibatch neighbour sampler."""
+community-packed node order, converters and the minibatch neighbour sampler."""
 
 from gnn_tpu_torch.graphs.adjacency import Adjacency, build_adjacency
-from gnn_tpu_torch.graphs.blocked import BlockedLayout, cluster_order
+from gnn_tpu_torch.graphs.blocked import cluster_order
 from gnn_tpu_torch.graphs.convert import (
     csr_to_edge_list,
     dense_to_edge_list,
@@ -34,7 +34,6 @@ from gnn_tpu_torch.graphs.transforms import (
 __all__ = [
     "Adjacency",
     "build_adjacency",
-    "BlockedLayout",
     "cluster_order",
     "edge_list",
     "to_dense_adj",

@@ -19,14 +19,14 @@ for the CSR layout, which is what the hand-written kernels read:
 ``reorder=True`` / ``'auto'`` relabels a degree-symmetric graph's nodes by
 degree bucket (:func:`~gnn_tpu_torch.graphs.sorted_ell.degree_bucket_order`,
 the JAX package's ``perm`` element for element) and ``reorder='cluster'`` by
-community, adding the cluster-packed block-diagonal layouts of
-:mod:`gnn_tpu_torch.graphs.blocked` (``blocked`` and its transpose
-``t_blocked``); ``perm`` is then the new -> old node map. Index arrays are
-int32, as the kernels take them. ``layout`` records which layout the JAX
-package would have built (``'sorted'``, ``'ell'``, ``'csr'`` or
+community into packed windows (:mod:`gnn_tpu_torch.graphs.blocked`, the JAX
+package's ``perm`` too); ``perm`` is then the new -> old node map. Index
+arrays are int32, as the kernels take them. ``layout`` records which layout
+the JAX package would have built (``'sorted'``, ``'ell'``, ``'csr'`` or
 ``'blocked'``), so that the ``spmm`` backends raise where it raises; the TPU
-layouts themselves (ELL and sorted-ELL slot tables, chunk plans) are not
-built: every layout is the CSR here.
+layouts themselves (ELL and sorted-ELL slot tables, chunk plans, the blocked
+layout's dense windows and remainder) are not built: every layout is the
+CSR here.
 """
 
 from __future__ import annotations
@@ -38,12 +38,14 @@ import numpy as np
 import torch
 
 if TYPE_CHECKING:
-    from gnn_tpu_torch.graphs.blocked import BlockedLayout
     from gnn_tpu_torch.ops.edge_agg import EdgeAggLayout
 
 __all__ = ["Adjacency", "build_adjacency"]
 
 _NOT_TENSORS = ("num_src_nodes", "num_dst_nodes", "layout")
+# the JAX package's backends for its blocked layout's remainder; checked,
+# and none builds anything here
+_REM_BACKENDS = ("auto", "bucket", "levels", "kernel")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +61,6 @@ class Adjacency:
     num_src_nodes: int
     num_dst_nodes: int
     perm: Optional[torch.Tensor] = None  # [N] int32 new -> old node id (reorder)
-    blocked: Optional[BlockedLayout] = None  # intra-window blocks + remainder CSR
-    t_blocked: Optional[BlockedLayout] = None  # the same for the transpose (dx)
     layout: str = "csr"  # the JAX package's layout: 'sorted', 'ell', 'csr' or 'blocked'
 
     @property
@@ -109,24 +109,19 @@ class Adjacency:
 
     def with_weight(self, weight: Optional[torch.Tensor]) -> "Adjacency":
         """Swap the edge weights (in the dst-sorted edge order), re-baking the
-        cached transpose weights and the blocked layouts' constants. For
-        differentiable per-edge weights use ``ops.spmm_edge_weighted``."""
-        from gnn_tpu_torch.graphs.blocked import refresh_blocked_weights
-
-        refresh = lambda lay: None if lay is None else refresh_blocked_weights(lay, weight, self.num_edges)
+        cached transpose weights. For differentiable per-edge weights use
+        ``ops.spmm_edge_weighted``."""
         return dataclasses.replace(
             self,
             weight=weight,
             t_weight=None if weight is None else weight.index_select(0, self.t_perm.long()).contiguous(),
-            blocked=refresh(self.blocked),
-            t_blocked=refresh(self.t_blocked),
         )
 
     def unweighted(self) -> "Adjacency":
         """``with_weight(None)``, made once per adjacency and kept on it: a
         layer that sums plain neighbours (GIN) asks for it every forward,
-        and re-baking the blocked layouts' constants costs a pass over every
-        dense block."""
+        and the cache keeps the building of a new Adjacency out of the
+        step's host work."""
         if self.weight is None:
             return self
         cached = self.__dict__.get("_unweighted")
@@ -137,22 +132,11 @@ class Adjacency:
 
     def transpose(self) -> "Adjacency":
         """A^T as an Adjacency (edges re-sorted by the old src), keeping
-        ``perm`` and ``layout``. The blocked layouts swap, and their
-        canonical edge ids map through the inverse of ``t_perm``; the
-        edge-position CSRs follow the transposed arrays, which is what the
-        JAX package's remapping of its slot tables amounts to."""
+        ``perm`` and ``layout``. The edge-position CSRs follow the
+        transposed arrays, which is what the JAX package's remapping of its
+        slot tables amounts to."""
         inv = torch.empty_like(self.t_perm)
         inv[self.t_perm.long()] = torch.arange(self.num_edges, dtype=inv.dtype, device=inv.device)
-
-        def remap(lay):
-            if lay is None:
-                return None
-            return dataclasses.replace(
-                lay,
-                diag_eid=inv[lay.diag_eid.long()],
-                rem_eid=inv[lay.rem_eid.long()],
-            )
-
         idx = self.t_perm.long()
         return Adjacency(
             src=self.t_col,
@@ -166,8 +150,6 @@ class Adjacency:
             num_src_nodes=self.num_dst_nodes,
             num_dst_nodes=self.num_src_nodes,
             perm=self.perm,
-            blocked=remap(self.t_blocked),
-            t_blocked=remap(self.blocked),
             layout=self.layout,
         )
 
@@ -274,12 +256,13 @@ def build_adjacency(
     the in-degree over edges whose source has fewer than ``hub_dense``
     in-edges, as the JAX package does; its dense hub block and
     ``hub_dtype`` are TPU machinery and build nothing here. ``"cluster"``
-    relabels them into community-packed windows of ``block_rows`` nodes and
-    builds the blocked layouts (``block_dtype`` for the dense blocks, e.g.
-    ``torch.bfloat16``; ``rem_backend`` as in the JAX package, all values
-    build the same CSR remainder; ``cluster_*`` steer the label
-    propagation and the boundary refinement). A relabelled adjacency speaks
-    the new id space: feed ``x[adj.perm]`` (``Data.permute_nodes``).
+    relabels them into community-packed windows of ``block_rows`` nodes
+    (``cluster_*`` steer the label propagation and the boundary refinement)
+    and builds the CSR over the new ids. The JAX package's blocked layout is
+    TPU machinery too: ``block_dtype`` (its dense windows' type) and
+    ``rem_backend`` (its remainder's backend, checked for the JAX package's
+    values) build nothing here. A relabelled adjacency speaks the new id
+    space: feed ``x[adj.perm]`` (``Data.permute_nodes``).
 
     ``layout`` (``"auto"``, ``"ell"`` or ``"csr"``; ``ell_buckets`` for
     ``"ell"``) takes the JAX package's values and errors, and every value
@@ -319,6 +302,8 @@ def build_adjacency(
             src, dst, num_dst_nodes, rows=int(block_rows), labels=cluster_labels,
             n_iters=cluster_iters, seed=cluster_seed, refine=cluster_refine,
         )
+        if rem_backend not in _REM_BACKENDS:
+            raise ValueError(f"unknown rem_backend '{rem_backend}'")
     else:
         if hub_dense is not None and not reorder:
             raise ValueError("hub_dense requires reorder=True/'auto'")
@@ -335,16 +320,7 @@ def build_adjacency(
     t_perm = np.lexsort((dst, src))
     t_row_ptr = _csr_offsets(src[t_perm], num_src_nodes)
     w = None if edge_weight is None else np.asarray(edge_weight, np.float32)[order]
-    num_edges = len(src)
-    layout = _jax_layout(layout, num_edges, perm is not None, cluster, ell_buckets)
-
-    blocked = t_blocked = None
-    if cluster:
-        from gnn_tpu_torch.graphs.blocked import build_blocked
-
-        kw = dict(edge_weight=w, rows=int(block_rows), block_dtype=block_dtype, rem_backend=rem_backend)
-        blocked = build_blocked(src, dst, np.arange(num_edges), num_dst_nodes, num_edges, **kw)
-        t_blocked = build_blocked(dst[t_perm], src[t_perm], t_perm, num_src_nodes, num_edges, **kw)
+    layout = _jax_layout(layout, len(src), perm is not None, cluster, ell_buckets)
 
     i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
     f32 = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a))
@@ -360,7 +336,5 @@ def build_adjacency(
         num_src_nodes=int(num_src_nodes),
         num_dst_nodes=int(num_dst_nodes),
         perm=None if perm is None else i32(perm),
-        blocked=blocked,
-        t_blocked=t_blocked,
         layout=layout,
     )

@@ -176,10 +176,10 @@ class Data:
         move it with ``.to(device)``).
 
         ``reorder`` (True / ``'auto'``) relabels a degree-symmetric graph
-        by degree bucket; ``reorder='cluster'`` builds the community-packed
-        blocked layouts. The other knobs (``layout``, ``ell_buckets``,
-        ``hub_dense``, ``hub_dtype``, ``block_rows``, ``block_dtype``, ...)
-        pass through to
+        by degree bucket; ``reorder='cluster'`` by community, into packed
+        windows of ``block_rows`` nodes. The other knobs (``layout``,
+        ``ell_buckets``, ``hub_dense``, ``hub_dtype``, ``block_rows``,
+        ``block_dtype``, ...) pass through to
         :func:`~gnn_tpu_torch.graphs.adjacency.build_adjacency`. A
         relabelled adjacency speaks a new node space: pair it with
         ``permute_nodes(adj.perm)``."""
@@ -211,9 +211,10 @@ class Data:
         normalization prep, then a node partition over the mesh's
         ``axis_name`` axis, on the mesh's device
         (:func:`~gnn_tpu_torch.parallel.partition_graph`).
-        ``local_blocked=R`` (halo='overlap') moves each part's local
-        intra-window edges into dense blocks; pair it with a
-        ``graphs.cluster_order(..., pack_rows=R)`` relabelling first."""
+        ``local_blocked=R`` (halo='overlap') aligns the parts to windows of
+        R nodes; pair it with a ``graphs.cluster_order(..., pack_rows=R)``
+        relabelling first. ``block_dtype`` is the JAX package's type for its
+        dense blocks and builds nothing here."""
         from gnn_tpu_torch.parallel.partition import partition_graph
 
         ei, ew = _numpy(self.edge_index), _numpy(self.edge_attr)

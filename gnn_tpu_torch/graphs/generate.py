@@ -12,7 +12,7 @@ arrays (compared in ``tests/test_torch_graphs.py``):
 * :func:`random_regular` — approximately d-regular directed edges;
 * :func:`power_law` — skewed destination popularity (ogbn-arxiv-like);
 * :func:`clustered_power_law` — community-structured power-law edges with
-  shuffled ids, at scale (the cluster-blocked layout's workload);
+  shuffled ids, at scale (the community relabelling's workload);
 * :func:`karate_club` — Zachary's karate club.
 """
 

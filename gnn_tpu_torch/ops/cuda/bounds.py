@@ -27,8 +27,7 @@ from dataclasses import dataclass
 __all__ = [
     "H100_BYTES_PER_S", "H100_F32_FLOPS", "H100_BF16_FLOPS", "Bound",
     "csr_spmm_bound", "segment_sum_bound", "csr_spmm_heads_bound", "sddmm_heads_bound", "gatv2_score_bound",
-    "gatv2_score_bwd_bound", "edge_softmax_bound", "edge_softmax_bwd_bound", "blocked_matvec_bound",
-    "blocked_layout_cost_ms", "exchange_bound",
+    "gatv2_score_bwd_bound", "edge_softmax_bound", "edge_softmax_bwd_bound", "exchange_bound",
 ]
 
 # NVIDIA's data sheet, H100 SXM at its full 700 W power limit.
@@ -170,31 +169,6 @@ def edge_softmax_bwd_bound(n_rows: int, n_edges: int, H: int) -> Bound:
         noreuse_bytes=fixed + max(n_edges, n_rows) * H * 4,
         operations=2 * n_edges * H,
     )
-
-
-def blocked_matvec_bound(n_rows: int, n_edges: int, F: int, itemsize: int) -> Bound:
-    """``blocked_matvec`` computes A @ x, so its bound is that of the
-    function, whatever the layout: K1's over the whole CSR of ``n_edges``
-    weighted edges, x and out once."""
-    return csr_spmm_bound(n_rows, n_rows, n_edges, F, itemsize)
-
-
-def blocked_layout_cost_ms(
-    n_blocks: int, block_rows: int, block_itemsize: int, n_rows: int, n_rem_edges: int, F: int, itemsize: int
-) -> float:
-    """The least time for what the blocked *layout* asks of the card, which
-    is more than the function needs: every entry of the dense [n_blocks, R,
-    R] diagonal blocks is read and multiplied, zero or not (at the float32
-    rate outside the tensor cores for float32 blocks, at the tensor cores'
-    bfloat16 rate for 2-byte blocks), then K1 runs over the remainder CSR."""
-    blocks = n_blocks * block_rows * block_rows
-    remainder = csr_spmm_bound(n_rows, n_rows, n_rem_edges, F, itemsize)
-    block_rate = H100_BF16_FLOPS if block_itemsize == 2 else H100_F32_FLOPS
-    seconds = max(
-        (blocks * block_itemsize + remainder.bytes) / H100_BYTES_PER_S,
-        2 * blocks * F / block_rate + remainder.operations / H100_F32_FLOPS,
-    )
-    return seconds * 1e3
 
 
 def exchange_bound(n_slots: int, F: int, itemsize: int) -> Bound:

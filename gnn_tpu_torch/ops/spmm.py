@@ -6,17 +6,13 @@ e=(s -> d) of w_e * x[s], differentiable in x (dx = A^T g) and, through
 
 * ``segment``: kernel K1 (``ops/cuda/spmm.py``) over the CSR, forward and
   dx through the transpose CSR;
-* ``ell`` and ``sorted``: the JAX package's ELL and sorted-ELL slot tables
-  are TPU layouts; here both run K1 over the same CSR, and raise the JAX
-  package's ``ValueError`` where its adjacency would lack that layout
-  (``adj.layout`` records which one it built);
-* ``blocked`` (the ``'auto'`` choice when the adjacency was built with
-  ``reorder='cluster'``): :func:`~gnn_tpu_torch.graphs.blocked.blocked_matvec`
-  forward and over ``t_blocked`` for dx, the JAX package's
-  ``_spmm_blocked`` (``gnn_tpu/ops/spmm.py:137-158``). Its weights are
-  layout constants, with no dw, as in JAX.
+* ``ell``, ``sorted`` and ``blocked``: the JAX package's ELL and sorted-ELL
+  slot tables and its cluster-blocked windows are TPU layouts; here all
+  three run K1 over the same CSR, and raise the JAX package's
+  ``ValueError`` where its adjacency would lack that layout (``adj.layout``
+  records which one it built; ``'blocked'`` is that of ``reorder='cluster'``).
 
-``'auto'`` takes ``blocked`` where that layout exists and K1 otherwise; the
+``'auto'`` is K1 over the CSR, whatever the adjacency's relabelling; the
 retired ``'pallas'`` raises, as in the JAX package. A node-partitioned
 :class:`~gnn_tpu_torch.parallel.DistGraph` routes to
 :func:`~gnn_tpu_torch.parallel.spmm_dist` (``gnn_tpu/ops/spmm.py:259-319``),
@@ -47,46 +43,23 @@ _LAYOUT_ERRORS = {
     "adjacency with build_adjacency(..., reorder=True)",
     "ell": "spmm backend 'ell' needs an ELL layout: build the adjacency "
     "with build_adjacency(..., layout='ell')",
+    "blocked": "spmm backend 'blocked' needs the cluster-packed layout: build the "
+    "adjacency with build_adjacency(..., reorder='cluster')",
 }
-
-
-class _BlockedSpmm(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, adj):
-        from gnn_tpu_torch.graphs.blocked import blocked_matvec
-
-        ctx.adj = adj
-        return blocked_matvec(adj.blocked, x)
-
-    @staticmethod
-    def backward(ctx, g):
-        from gnn_tpu_torch.graphs.blocked import blocked_matvec
-
-        with span("agg.spmm.bwd"):
-            return blocked_matvec(ctx.adj.t_blocked, g.contiguous()), None
 
 
 def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
     """out = A @ x, A given by ``adj`` (logically [N_dst, N_src]).
 
-    ``backend``: 'auto' takes 'blocked' when the adjacency has the blocked
-    layouts and K1 over the CSR otherwise; 'segment', 'ell' and 'sorted' run
-    K1 over the CSR (the latter two where the JAX package's adjacency would
+    ``backend``: 'auto', 'segment', 'ell', 'sorted' and 'blocked' run K1
+    over the CSR (the last three where the JAX package's adjacency would
     have that layout).
     """
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of rank 2 [N, F], got {tuple(x.shape)}")
     if not isinstance(adj, Adjacency):
         return _spmm_dist(adj, x)
-    if backend == "auto":
-        backend = "blocked" if adj.blocked is not None else "segment"
-    if backend == "blocked":
-        if adj.blocked is None or adj.t_blocked is None:
-            raise ValueError(
-                "spmm backend 'blocked' needs the cluster-packed layout: build the "
-                "adjacency with build_adjacency(..., reorder='cluster')"
-            )
-    elif backend == "pallas":
+    if backend == "pallas":
         raise ValueError(
             "spmm backend 'pallas' is retired: it wins no measured regime in the "
             "JAX package. Use backend='auto'."
@@ -94,10 +67,10 @@ def spmm(adj: Adjacency, x: torch.Tensor, *, backend: str = "auto") -> torch.Ten
     elif backend in _LAYOUT_ERRORS:
         if adj.layout != backend:
             raise ValueError(_LAYOUT_ERRORS[backend])
-    elif backend != "segment":
+    elif backend not in ("auto", "segment"):
         raise ValueError(f"unknown spmm backend '{backend}'")
     with span("agg.spmm"):
-        return _BlockedSpmm.apply(x, adj) if backend == "blocked" else spmm_csr(adj, x)
+        return spmm_csr(adj, x)
 
 
 def spmm_edge_weighted(adj: Adjacency, weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,8 @@ in a group; its reverse, ``reduce_scatter_tensor``.
 
 * :func:`spmm_dist`: out = A x. allgather: gather, K1 over ``adj``; backward:
   gather g, K1 over ``t_adj``. alltoall: K1 over ``[own | recv]``. overlap:
-  K1 over the owned rows, ``torch.bmm`` over the ``diag`` blocks
-  (``local_blocked``; their transpose in the backward), K1 over the recv
-  slots.
+  K1 over the owned rows (with ``local_blocked``, its intra-window edges
+  too), K1 over the recv slots.
 * :func:`gather_src_dist`: per-edge source rows; VJP: K1 over the incidence
   CSR (partials by buffer row), then the remote partials go back to their
   owners and K1 over the ``send`` CSR adds them to the owned rows, without a
@@ -40,7 +39,6 @@ import warnings
 import torch
 import torch.distributed as tdist
 
-from gnn_tpu_torch.graphs.blocked import _diag_product
 from gnn_tpu_torch.ops.cuda.segment import segment_sum_csr
 from gnn_tpu_torch.ops.cuda.spmm import csr_spmm
 from gnn_tpu_torch.ops.segment import segment_max
@@ -130,16 +128,6 @@ def _reduce_scatter(dist: DistGraph, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _diag(dist: DistGraph, v: torch.Tensor, transpose: bool) -> torch.Tensor:
-    """The dense product of the local intra-window blocks."""
-    R = dist.block_rows
-    d = dist.diag.view(-1, R, R)
-    d = d.transpose(1, 2) if transpose else d
-    with span("blocked_matvec.diag"):
-        vw = v.view(-1, R, v.shape[1]).to(d.dtype)
-        return _diag_product(d, vw).view(v.shape).to(v.dtype)
-
-
 def _aggregate(dist: DistGraph, v: torch.Tensor, transpose: bool) -> torch.Tensor:
     """A v (forward) or A^T v (``transpose``) over the local parts."""
     adj = dist.t_adj if transpose else dist.adj
@@ -153,10 +141,7 @@ def _aggregate(dist: DistGraph, v: torch.Tensor, transpose: bool) -> torch.Tenso
         _exchange(dist, v, idx, out=buf[n_own:])
         return _k1(adj, buf)
     recv = _exchange(dist, v, idx)  # issued first: the local product needs none of it
-    out = _k1(adj, v)
-    if dist.diag is not None:
-        out.add_(_diag(dist, v, transpose))
-    return out.add_(_k1(dist.t_adj_rem if transpose else dist.adj_rem, recv))
+    return _k1(adj, v).add_(_k1(dist.t_adj_rem if transpose else dist.adj_rem, recv))
 
 
 class _SpmmDist(torch.autograd.Function):

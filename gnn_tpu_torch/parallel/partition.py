@@ -12,18 +12,20 @@ The plan is the JAX package's, array for array: ``n_max`` aligned to 8 (or
 to the window ``R`` of ``local_blocked``), the per-part forward and backward
 edge lists lexsorted, the targeted exchange's ``send_idx`` / ``t_send_idx``
 [P, P, h_max] with one ``h_max`` for both directions, the overlap mode's
-local / remote split and its ``diag`` [P, B, R, R] blocks, and the
-edge-parallel arrays ``esrc_coord``, ``edst_row``, ``edge_id`` and
-``in_degree`` [P, ...]. Where the JAX package stacks ELL slot tables (TPU
-machinery), the port builds CSRs as :class:`~gnn_tpu_torch.graphs.Adjacency`
-objects over the parts of this process laid end to end, so that one kernel
-launch serves every local part of a direction:
+local / remote split, and the edge-parallel arrays ``esrc_coord``,
+``edst_row``, ``edge_id`` and ``in_degree`` [P, ...]. Where the JAX package
+stacks ELL slot tables or, under ``local_blocked``, dense [P, B, R, R]
+blocks of the local intra-window edges (TPU machinery), the port builds CSRs
+as :class:`~gnn_tpu_torch.graphs.Adjacency` objects over the parts of this
+process laid end to end, so that one kernel launch serves every local part
+of a direction:
 
 * the exchange buffer of the targeted modes is ``[x (L n_max) | recv (L P
   h_max)]``, part l's recv slots at ``L n_max + l P h_max``; that of
   ``'allgather'`` is the gathered ``[P n_max]`` layout, shared by the parts;
 * ``adj`` / ``t_adj``: forward and transpose products into that buffer
-  (overlap: ``adj`` reads the owned rows, ``adj_rem`` the recv slots);
+  (overlap: ``adj`` reads the owned rows, intra-window edges included,
+  ``adj_rem`` the recv slots);
 * ``inc``: the incidence CSR, rows = buffer rows, entries = the positions of
   the local edges in the ``[L e_max]`` per-edge layout whose source they hold
   (the scatter-free VJP of :func:`~gnn_tpu_torch.parallel.gather_src_dist`);
@@ -49,7 +51,7 @@ from gnn_tpu_torch.graphs.convert import as_numpy
 __all__ = ["DistGraph", "partition_graph"]
 
 _TENSOR_FIELDS = (
-    "adj", "t_adj", "adj_rem", "t_adj_rem", "inc", "send", "diag", "send_idx", "t_send_idx",
+    "adj", "t_adj", "adj_rem", "t_adj_rem", "inc", "send", "send_idx", "t_send_idx",
     "exchange_idx", "t_exchange_idx", "esrc_coord", "edst_row", "edge_id", "in_degree",
     "esrc_index", "edst_index", "dst_row_ptr",
 )
@@ -68,10 +70,6 @@ class DistGraph:
     t_exchange_idx: Optional[torch.Tensor]
     adj_rem: Optional[Adjacency] = None  # overlap: remote-source in-edges, over the recv slots
     t_adj_rem: Optional[Adjacency] = None
-    # overlap + local_blocked=R: [L, B, R, R] dense blocks of the local
-    # intra-window edges (excluded from adj / t_adj); the backward uses the
-    # same blocks transposed
-    diag: Optional[torch.Tensor] = None
     # edge-parallel arrays (None when edge_parallel=False)
     esrc_coord: Optional[torch.Tensor] = None  # [L, E_max] int32, the JAX plan, pad -> n_buf
     edst_row: Optional[torch.Tensor] = None  # [L, E_max] int32, pad -> n_max
@@ -89,7 +87,6 @@ class DistGraph:
     mesh: object = None  # parallel.Mesh
     axis_name: str = "data"
     halo: str = "allgather"
-    block_rows: int = 0  # R of the local diag blocks
     h_max: int = 0  # padded per-pair halo size
     e_max: int = 0  # padded per-part edge count
     has_weight: bool = False  # baked edge weights?
@@ -252,9 +249,11 @@ def partition_graph(
     (each part receives only the rows its edges read) or 'overlap'
     ('alltoall' with the edges split by source owner: the local product
     needs no exchange); ``edge_parallel`` builds the per-edge arrays of the
-    dynamic-weight ops; ``local_blocked=R`` (halo='overlap') moves each
-    part's local intra-window edges into dense [B, R, R] blocks
-    (``block_dtype`` e.g. ``torch.bfloat16``).
+    dynamic-weight ops; ``local_blocked=R`` (halo='overlap') aligns the part
+    size to the window R of a ``cluster_order(..., pack_rows=R)``
+    relabelling. The JAX package moves each part's local intra-window edges
+    into dense blocks of type ``block_dtype``; here they stay in the local
+    CSR with the other local edges, and ``block_dtype`` builds nothing.
 
     Without a mesh the result holds every part on the CPU (move it with
     ``.to(device)``); with one, this process's parts on its device."""
@@ -344,7 +343,6 @@ def partition_graph(
         return np.where(coords < n_max, l * n_max + coords, n_own + l * P * H + (coords - n_max))
 
     adj_rem = t_adj_rem = None
-    diag_np = None
     if halo == "overlap":
         # Split each part's edges by source owner (:441-498): local-source
         # edges read x, remote-source ones the recv slots (q h_max + pos).
@@ -359,32 +357,18 @@ def partition_graph(
 
         loc = {True: [], False: []}
         rem = {True: [], False: []}
-        if R_blk:
-            diag_np = np.zeros((P, n_max // R_blk, R_blk, R_blk), np.float32)
-        for p in range(P):
+        for l, p in enumerate(parts):
             for src_parts, need, is_fwd in ((fwd_parts, need_f, True), (bwd_parts, need_b, False)):
                 cols, rows, w_p = src_parts[p]
                 m = np.minimum(cols // n_max, P - 1) == p
-                lc, lr = cols[m] - p * n_max, rows[m]
-                lw = None if w_p is None else w_p[m]
-                if R_blk:
-                    dn = lc // R_blk == lr // R_blk
-                    if is_fwd and dn.any():
-                        np.add.at(
-                            diag_np[p].reshape(-1),
-                            (lr[dn] // R_blk) * R_blk * R_blk + (lr[dn] % R_blk) * R_blk + (lc[dn] % R_blk),
-                            1.0 if lw is None else lw[dn],
-                        )
-                    lc, lr = lc[~dn], lr[~dn]
-                    lw = None if lw is None else lw[~dn]
-                if p in parts:
-                    l = p - parts.start
-                    r = ~m
-                    loc[is_fwd].append((l * n_max + lr, l * n_max + lc, lw))
-                    rem[is_fwd].append((
-                        l * n_max + rows[r], l * P * H + remote_remap(need, p, cols[r]),
-                        None if w_p is None else w_p[r],
-                    ))
+                r = ~m
+                loc[is_fwd].append((
+                    l * n_max + rows[m], l * n_max + cols[m] - p * n_max, None if w_p is None else w_p[m],
+                ))
+                rem[is_fwd].append((
+                    l * n_max + rows[r], l * P * H + remote_remap(need, p, cols[r]),
+                    None if w_p is None else w_p[r],
+                ))
         adj, t_adj = _concat(loc[True], n_own, n_own), _concat(loc[False], n_own, n_own)
         adj_rem, t_adj_rem = _concat(rem[True], n_own, n_recv), _concat(rem[False], n_own, n_recv)
     else:
@@ -470,19 +454,14 @@ def partition_graph(
             order = np.lexsort((js, gs, rows_s))
             send_csr = _csr(rows_s[order], cols_s[order], None, n_own, n_recv)
 
-    diag = None
-    if diag_np is not None:
-        diag = torch.from_numpy(np.ascontiguousarray(diag_np[parts.start : parts.stop]))
-        if block_dtype is not None:
-            diag = diag.to(block_dtype)
     local = lambda a: None if a is None else torch.from_numpy(np.ascontiguousarray(a[parts.start : parts.stop], np.int32))
     out = DistGraph(
         adj=adj, t_adj=t_adj, send_idx=local(send_f), t_send_idx=local(send_b),
         exchange_idx=exchange_idx, t_exchange_idx=t_exchange_idx, adj_rem=adj_rem, t_adj_rem=t_adj_rem,
-        diag=diag, esrc_coord=esrc_coord, edst_row=edst_row, edge_id=edge_id, in_degree=in_degree,
+        esrc_coord=esrc_coord, edst_row=edst_row, edge_id=edge_id, in_degree=in_degree,
         inc=inc, send=send_csr, esrc_index=esrc_index, edst_index=edst_index, dst_row_ptr=dst_row_ptr,
         num_parts=P, n_max=int(n_max), num_nodes=int(num_nodes), mesh=mesh, axis_name=axis_name,
-        halo=halo, block_rows=R_blk, h_max=int(h_max), e_max=int(e_max), has_weight=edge_weight is not None,
+        halo=halo, h_max=int(h_max), e_max=int(e_max), has_weight=edge_weight is not None,
         num_local_parts=L, first_part=parts.start, grouped=grouped, group=group,
     )
     return out if device.type == "cpu" else out.to(device)

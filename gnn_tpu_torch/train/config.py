@@ -44,7 +44,7 @@ class TrainConfig:
     eval_every: int = 10
     # "auto" relabels a degree-symmetric graph's nodes by degree bucket (and
     # keeps the ids of another), "true" relabels or raises, "false" keeps the
-    # ids, "cluster" relabels into the cluster-blocked layout. Sampled
+    # ids, "cluster" relabels by community into packed windows. Sampled
     # minibatches keep the ids whatever the value.
     reorder: str = "auto"
     checkpoint_dir: str = ""  # non-empty: a final checkpoint, and fit(resume=True) reads it

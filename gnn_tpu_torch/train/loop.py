@@ -5,9 +5,9 @@ Port of the single-device branches of ``gnn_tpu/train/loop.py::fit``:
 * **full graph**: one-time prep (exact ``gcn_norm`` and the CSR adjacency,
   moved to the device; under the default ``train.reorder='auto'`` and under
   ``'true'`` the nodes of a degree-symmetric graph are relabelled by degree
-  bucket, under ``'cluster'`` by community with the cluster-blocked
-  layouts, as in the JAX ``fit``; features, labels and masks move with
-  them), then per epoch the model
+  bucket, under ``'cluster'`` by community into packed windows, as in the
+  JAX ``fit``, and every relabelling aggregates on the same CSR; features,
+  labels and masks move with them), then per epoch the model
   -> masked cross entropy -> backward -> (gradient clipping ->) Adam, AdamW
   or SGD;
 * **sampled minibatches** (``train.batch_size > 0``; ``sage``, ``gat``,
@@ -39,7 +39,8 @@ With ``dist.num_parts = P > 1`` (``gnn_tpu/train/loop.py:135-324``):
 
 * **full graph, partitioned**: the graph goes into P parts on ``device``
   (``Data.to_dist_graph``, halo ``dist.halo``; ``dist.cluster_order`` or
-  ``dist.local_blocked`` relabel the nodes by community first, and
+  ``dist.local_blocked`` relabel the nodes by community first, the latter
+  into windows of that many nodes, to which it aligns the parts, and
   ``local_blocked`` forces halo 'overlap', warning where another was asked
   for), features, labels and masks into its padded layout (masks ``False``
   on the padding rows, so that the loss and the accuracies leave them out;

@@ -1,15 +1,19 @@
-"""The port's cluster-blocked path against gnn_tpu: the native graph core,
-the packing and refinement orders, ``build_adjacency(reorder='cluster')``,
-``blocked_matvec`` and its remainder, the blocked ``spmm`` and its gradient,
-``transpose``/``with_weight``, and ``fit(train.reorder='cluster')``.
+"""The port's community relabelling against gnn_tpu: the native graph
+core, the packing and refinement orders, ``build_adjacency(reorder='cluster')``,
+``spmm`` over such an adjacency (K1 over its CSR) against the JAX package's
+blocked product and its gradient, ``transpose``/``with_weight``, and
+``fit(train.reorder='cluster')``.
 
-Same numpy inputs into both packages. Integer arrays and the block values
-must be identical (both packages build them from the same native calls and
-numpy arithmetic). Products: rtol=1e-5, atol=1e-6, float32 sums in another
+Same numpy inputs into both packages. Integer arrays must be identical (both
+packages build them from the same native calls and numpy arithmetic). The
+port builds no blocked layout: ``spmm`` over a relabelled adjacency is K1's
+plain version over its CSR on the CPU, bit for bit. Against the JAX
+package's blocked product: rtol=1e-5, atol=1e-6, float32 sums in another
 order. Loss curves: rtol=1e-4, as in tests/test_torch_train.py. The dense
 oracles are scipy/numpy in float64.
 """
 
+import dataclasses
 import subprocess
 
 import jax
@@ -26,7 +30,6 @@ from gnn_tpu.graphs.datasets import load_dataset as jax_load_dataset
 from gnn_tpu.models import GAT as JaxGAT
 from gnn_tpu.models import GCN as JaxGCN
 from gnn_tpu.ops import spmm as jax_spmm
-from gnn_tpu.ops.pallas.segment import build_chunk_plan, segment_sum_sorted
 from gnn_tpu.train import Config as JaxConfig
 from gnn_tpu.train import fit as jax_fit
 from gnn_tpu_torch import graphs as tg
@@ -173,75 +176,82 @@ def test_cluster_order_matches_jax_and_keeps_boundaries():
     assert capture(refined) >= capture(perm)
 
 
-def _assert_layouts_equal(tl, jl):
-    np.testing.assert_array_equal(tl.diag.float().numpy(), np.asarray(jl.diag.astype(jnp.float32)))
-    assert tl.diag.dtype == (torch.bfloat16 if jl.diag.dtype == jnp.bfloat16 else torch.float32)
-    for name in ("diag_pos", "diag_eid", "rem_src", "rem_dst", "rem_w", "rem_eid"):
-        np.testing.assert_array_equal(getattr(tl, name).numpy(), np.asarray(getattr(jl, name)), err_msg=name)
-    rem_dst = np.asarray(jl.rem_dst)
-    np.testing.assert_array_equal(
-        tl.rem_row_ptr.numpy(), np.concatenate([[0], np.cumsum(np.bincount(rem_dst, minlength=tl.num_nodes))])
-    )
-    assert (tl.num_nodes, tl.rows, tl.num_blocks) == (jl.num_nodes, jl.rows, jl.num_blocks)
+CSR = ("perm", "src", "dst", "row_ptr", "t_perm", "t_row_ptr")
+
+
+def _assert_csr_equals_jax(tadj, jadj):
+    for name in CSR:
+        got = getattr(tadj, name)
+        assert got.dtype == torch.int32, name
+        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jadj, name)), err_msg=name)
 
 
 @pytest.mark.parametrize(
     "block_rows,block_dtype", [(32, None), (64, None), (64, torch.bfloat16)], ids=["R32", "R64", "R64-bf16"]
 )
 def test_build_adjacency_cluster_identical(block_rows, block_dtype):
+    """The relabelling and the CSR equal the JAX package's; the JAX blocked
+    layout's windows are real (dense and inter-window edges both present),
+    and ``block_dtype``, the type of those windows there, changes nothing
+    here."""
     ei, w = _clustered_graph(600, seed=1)
     jadj, tadj = _both(ei, w, 600, block_rows=block_rows, block_dtype=block_dtype)
-    for name in ("perm", "src", "dst", "row_ptr", "t_perm", "t_row_ptr"):
-        got = getattr(tadj, name)
-        assert got.dtype == torch.int32, name
-        np.testing.assert_array_equal(got.numpy(), np.asarray(getattr(jadj, name)), err_msg=name)
+    _assert_csr_equals_jax(tadj, jadj)
     np.testing.assert_array_equal(tadj.weight.numpy(), np.asarray(jadj.weight))
-    _assert_layouts_equal(tadj.blocked, jadj.blocked)
-    _assert_layouts_equal(tadj.t_blocked, jadj.t_blocked)
-    assert tadj.blocked.num_dense_edges > 0 and tadj.blocked.num_rem_edges > 0
+    np.testing.assert_array_equal(tadj.t_weight.numpy(), np.asarray(jadj.weight)[np.asarray(jadj.t_perm)])
+    assert tadj.layout == "blocked" and jadj.blocked.num_dense_edges > 0 and jadj.blocked.num_rem_edges > 0
+    plain = tg.build_adjacency(ei, w, num_nodes=600, reorder="cluster", block_rows=block_rows)
+    for f in dataclasses.fields(tadj):
+        a, b = getattr(tadj, f.name), getattr(plain, f.name)
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
     moved = tadj.to("cpu")
-    assert moved.blocked.num_rem_edges == tadj.blocked.num_rem_edges and moved.perm is not None
+    assert torch.equal(moved.perm, tadj.perm) and moved.layout == "blocked"
+
+
+@pytest.mark.parametrize(
+    "block_rows,block_dtype", [(32, None), (64, None), (64, torch.bfloat16)], ids=["R32", "R64", "R64-bf16"]
+)
+def test_cluster_spmm_is_k1_over_its_csr(block_rows, block_dtype):
+    """``spmm`` over a ``reorder='cluster'`` adjacency, every backend that
+    takes it, is K1 over the relabelled CSR: forward and dx equal K1's
+    plain version over the CSR and its transpose bit for bit."""
+    n = 600
+    ei, w = _clustered_graph(n, seed=1)
+    tadj = tg.build_adjacency(ei, w, num_nodes=n, reorder="cluster", block_rows=block_rows, block_dtype=block_dtype)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(n, 24)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, 24)).astype(np.float32))
+    want = csr_spmm_plain(tadj.row_ptr, tadj.src, tadj.weight, x)
+    want_dx = csr_spmm_plain(tadj.t_row_ptr, tadj.t_col, tadj.t_weight, g)
+    for backend in ("auto", "segment", "blocked"):
+        xt = x.clone().requires_grad_()
+        out = tops.spmm(tadj, xt, backend=backend)
+        out.backward(g)
+        assert torch.equal(out.detach(), want), backend
+        assert torch.equal(xt.grad, want_dx), backend
 
 
 @pytest.mark.parametrize("rem_backend", ["auto", "bucket", "levels", "kernel"])
 def test_blocked_matvec_matches_jax_and_dense(rem_backend):
-    """Every rem_backend builds the same CSR remainder in the port; each is
-    held to the JAX package's layout of that backend and to a dense oracle
-    (tests/test_blocked.py:99)."""
+    """Every rem_backend is accepted and builds the same CSR in the port;
+    ``spmm`` over it is held to the JAX package's blocked product with the
+    layout of that backend and to a dense oracle (tests/test_blocked.py:99)."""
     n = 600
     ei, w = _clustered_graph(n, seed=1)
     jadj, tadj = _both(ei, w, n, block_rows=64, rem_backend=rem_backend)
+    _assert_csr_equals_jax(tadj, jadj)
     x = np.random.default_rng(2).normal(size=(n, 24)).astype(np.float32)
     want = np.asarray(jb.blocked_matvec(jadj.blocked, jnp.asarray(x)))
-    got = tb.blocked_matvec(tadj.blocked, torch.from_numpy(x))
+    got = tops.spmm(tadj, torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     a = _dense(ei, w, n, tadj.perm.long().numpy())
     np.testing.assert_allclose(got.numpy(), a @ x, **TOL)
-    np.testing.assert_allclose(tops.spmm(tadj, torch.from_numpy(x)).numpy(), a @ x, **TOL)
-
-
-@pytest.mark.parametrize("direction", ["blocked", "t_blocked"])
-def test_remainder_matches_pallas_kernel(direction):
-    """The remainder's plain K1 against the JAX package's Pallas sorted
-    segment sum in interpret mode, on the JAX layout's own remainder arrays
-    (more than one 256-edge chunk, so the kernel path runs)."""
-    n = 600
-    ei, w = _clustered_graph(n, seed=1)
-    jadj, tadj = _both(ei, w, n, block_rows=64, rem_backend="kernel")
-    jl, tl = getattr(jadj, direction), getattr(tadj, direction)
-    assert jl.num_rem_edges >= 256
-    x = np.random.default_rng(4).normal(size=(n, 16)).astype(np.float32)
-    msg = jnp.take(jnp.asarray(x), jl.rem_src, axis=0) * jl.rem_w[:, None]
-    plan = build_chunk_plan(np.asarray(jl.rem_dst), n, chunk=256, rows=256)
-    want = segment_sum_sorted(msg, plan, n, dst_sorted=jl.rem_dst, interpret=True)
-    got = csr_spmm_plain(tl.rem_row_ptr, tl.rem_src, tl.rem_w, torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_blocked_grad_matches_jax_and_csr():
-    """dx through the blocked spmm: jax.grad of the JAX package's blocked
-    spmm, and the port's CSR backend on the same relabelled adjacency
-    (tests/test_blocked.py:128)."""
+    """dx through ``spmm`` over a cluster adjacency: jax.grad of the JAX
+    package's blocked spmm, and the port's 'segment' backend on the same
+    relabelled adjacency, the same K1 bit for bit (tests/test_blocked.py:128)."""
     n = 320
     ei, w = _clustered_graph(n, k=8, seed=5)
     jadj, tadj = _both(ei, w, n, block_rows=32)
@@ -255,12 +265,12 @@ def test_blocked_grad_matches_jax_and_csr():
         (tops.spmm(tadj, xt, backend=backend) ** 2 * torch.from_numpy(ct)).sum().backward()
         grads.append(xt.grad.numpy())
     np.testing.assert_allclose(grads[0], np.asarray(want), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(grads[0], grads[1])
 
 
 def test_blocked_transpose_and_weight_swap():
     """tests/test_blocked.py:152 through the port, and the transposed
-    layouts' edge ids equal to the JAX package's."""
+    CSR equal to the JAX package's."""
     n = 320
     ei, w = _clustered_graph(n, k=8, seed=6)
     jadj, tadj = _both(ei, w, n, block_rows=32)
@@ -268,14 +278,11 @@ def test_blocked_transpose_and_weight_swap():
     x = torch.from_numpy(np.random.default_rng(5).normal(size=(n, 8)).astype(np.float32))
     t = tadj.transpose()
     jt = jadj.transpose()
-    for name in ("src", "dst", "row_ptr", "t_perm", "t_row_ptr"):
-        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(jt, name)), err_msg=name)
-    for tl, jl in ((t.blocked, jt.blocked), (t.t_blocked, jt.t_blocked)):
-        np.testing.assert_array_equal(tl.diag_eid.numpy(), np.asarray(jl.diag_eid))
-        np.testing.assert_array_equal(tl.rem_eid.numpy(), np.asarray(jl.rem_eid))
+    _assert_csr_equals_jax(t, jt)
+    assert t.layout == "blocked"
     np.testing.assert_allclose(tops.spmm(t, x).numpy(), a.T @ x.numpy(), **TOL)
     np.testing.assert_allclose(tops.spmm(t, x, backend="segment").numpy(), a.T @ x.numpy(), **TOL)
-    # a weight swap after the transpose goes through the remapped edge ids
+    # a weight swap after the transpose reaches both directions
     t3 = t.with_weight(t.weight * 3.0)
     np.testing.assert_allclose(tops.spmm(t3, x).numpy(), 3.0 * (a.T @ x.numpy()), rtol=1e-5, atol=5e-6)
     np.testing.assert_allclose(tops.spmm(t3, x, backend="segment").numpy(), 3.0 * (a.T @ x.numpy()),
@@ -283,9 +290,12 @@ def test_blocked_transpose_and_weight_swap():
     doubled = tadj.with_weight(tadj.weight * 2.0)
     np.testing.assert_allclose(tops.spmm(doubled, x).numpy(), 2.0 * tops.spmm(tadj, x).numpy(), rtol=1e-6)
     ones = tadj.with_weight(None)
-    # as in the JAX package, a layout that had weights re-bakes ones
-    assert ones.t_weight is None and bool((ones.blocked.rem_w == 1).all())
+    # as in the JAX package, an adjacency that had weights takes ones
+    assert ones.weight is None and ones.t_weight is None
     np.testing.assert_allclose(tops.spmm(ones, x).numpy(), (a != 0) @ x.numpy(), **TOL)
+    np.testing.assert_allclose(
+        tops.spmm(ones, x).numpy(), np.asarray(jax_spmm(jadj.with_weight(None), jnp.asarray(x.numpy()))), **TOL
+    )
 
 
 def test_blocked_directed_graph():
@@ -296,8 +306,7 @@ def test_blocked_directed_graph():
     ei, _ = tg.coalesce(np.stack([rng.integers(0, n, 2500), rng.integers(0, n, 2500)]), num_nodes=n)
     w = rng.random(ei.shape[1]).astype(np.float32)
     jadj, tadj = _both(ei, w, n, block_rows=32)
-    np.testing.assert_array_equal(tadj.perm.numpy(), np.asarray(jadj.perm))
-    _assert_layouts_equal(tadj.t_blocked, jadj.t_blocked)
+    _assert_csr_equals_jax(tadj, jadj)
     a = _dense(ei, w, n, tadj.perm.long().numpy())
     x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32)).requires_grad_()
     out = tops.spmm(tadj, x)
@@ -307,18 +316,10 @@ def test_blocked_directed_graph():
 
 
 def test_blocked_cpu_path_and_checks():
-    """CPU tensors take the plain version and count no launch; the layout
-    is checked; data.permute_nodes equals the JAX package's."""
+    """The backend and the options are checked; data.permute_nodes equals
+    the JAX package's."""
     ei, w = _clustered_graph(300, k=6, seed=2)
-    tadj = tg.build_adjacency(ei, w, num_nodes=300, reorder="cluster", block_rows=32)
     x = torch.randn(300, 8)
-    before = tb.blocked_matvec.launches
-    torch.testing.assert_close(
-        tb.blocked_matvec(tadj.blocked, x), tb.blocked_matvec_plain(tadj.blocked, x), rtol=0, atol=0
-    )
-    assert tb.blocked_matvec.launches == before
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        tb.blocked_matvec(tadj.blocked, x.to("meta"))
     with pytest.raises(ValueError, match="reorder='cluster'"):
         tops.spmm(tg.build_adjacency(ei, w, num_nodes=300), x, backend="blocked")
     with pytest.raises(ValueError, match="rem_backend"):
@@ -356,7 +357,8 @@ def _fit_cfg(model: str, **over):
 def test_fit_cluster_losses_match_jax(model):
     """fit(train.reorder='cluster'): the 5-epoch loss curve of
     gnn_tpu.train.fit with the same config and initial weights, dropout 0.
-    GAT reads the relabelled CSR; GCN runs the blocked spmm."""
+    GCN and GAT both read the relabelled CSR (the JAX GCN runs its blocked
+    product)."""
     jdata, tdata = jax_load_dataset("sbm"), tg.load_dataset("sbm")
     f = tdata.num_features
     if model == "gcn":
@@ -367,23 +369,8 @@ def test_fit_cluster_losses_match_jax(model):
         tmodel = GAT(f, 8, 4, heads=4, dropout=0.0)
     tmodel = load_jax_state_dict(tmodel, {k: np.asarray(v) for k, v in jnn.state_dict(jmodel).items()})
     _, _, jhist = jax_fit(JaxConfig.from_json(_fit_cfg(model).to_json()), jdata, model=jmodel, verbose=False)
-    before = tb.blocked_matvec.launches
     _, _, thist = fit(_fit_cfg(model), tdata, model=tmodel, device="cpu", verbose=False)
-    assert tb.blocked_matvec.launches == before  # CPU: the plain version, no count
     assert len(thist) == len(jhist) == 5
     np.testing.assert_allclose([h["loss"] for h in thist], [h["loss"] for h in jhist], rtol=1e-4)
     for split in ("train_acc", "val_acc", "test_acc"):
         assert abs(thist[-1][split] - jhist[-1][split]) <= 0.01, split
-
-
-def test_cora_like_kipf_accuracy_band_cluster_layout():
-    """Port of tests/test_models.py:219: the Kipf recipe through the
-    cluster-blocked layout lands in the Cora band."""
-    cfg = Config()
-    cfg.model.name, cfg.model.hidden, cfg.model.dropout = "gcn", 16, 0.5
-    cfg.optim.lr, cfg.optim.weight_decay = 0.01, 5e-4
-    cfg.train.epochs, cfg.train.eval_every = 200, 200
-    cfg.train.reorder = "cluster"
-    _, _, hist = fit(cfg, tg.cora_like(seed=0), device="cpu", verbose=False)
-    acc = hist[-1]["test_acc"]
-    assert 0.78 <= acc <= 0.88, f"outside Cora band: {acc}"

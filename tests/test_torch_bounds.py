@@ -155,29 +155,3 @@ def test_hop_bounds_have_no_gap_forward_and_a_fanout_gap_backward(n_dst, fanout,
     assert dx.noreuse_bytes - dx.bytes == 4 * F * (e - n_dst)
     heads = bounds.csr_spmm_heads_bound(n_dst, n_dst + e, e, 8, F // 8, 4)
     assert heads.noreuse_bytes == heads.bytes == fwd.bytes + 32 * e
-
-
-def test_blocked_matvec_bound_is_the_function_not_the_layout():
-    """A @ x over E edges, x and out once: K1's bound over the whole CSR."""
-    b = bounds.blocked_matvec_bound(169_343, 2_484_941, 256, 4)
-    assert b == bounds.csr_spmm_bound(169_343, 169_343, 2_484_941, 256, 4)
-    assert b.bound_by == "bytes" and b.bound_ms == pytest.approx(0.1095, rel=1e-2)
-
-
-@pytest.mark.parametrize(
-    "rows,n_blocks,itemsize,rate",
-    [(256, 662, 4, bounds.H100_F32_FLOPS), (512, 331, 2, bounds.H100_BF16_FLOPS)],
-    ids=["R256-float32", "R512-bfloat16"],
-)
-def test_blocked_layout_cost_counts_every_block_entry(rows, n_blocks, itemsize, rate):
-    """Every block entry read and multiplied at the rate of its type, plus
-    K1 over the remainder; never below the function's bound."""
-    ms = bounds.blocked_layout_cost_ms(n_blocks, rows, itemsize, 169_343, 693_240, 256, 4)
-    rem = bounds.csr_spmm_bound(169_343, 169_343, 693_240, 256, 4)
-    blocks = n_blocks * rows * rows
-    by_bytes = (blocks * itemsize + rem.bytes) / bounds.H100_BYTES_PER_S * 1e3
-    by_ops = (2 * blocks * 256 / rate + rem.operations / bounds.H100_F32_FLOPS) * 1e3
-    assert ms == pytest.approx(max(by_bytes, by_ops))
-    if itemsize == 4:
-        assert by_ops > by_bytes and ms == pytest.approx(0.3369, rel=1e-3)
-    assert ms > bounds.blocked_matvec_bound(169_343, 2_484_941, 256, 4).bound_ms

@@ -676,29 +676,32 @@ def _clustered_adjacency(block_dtype=None, n=3000):
 @pytest.mark.gpu
 @pytest.mark.parametrize("block_dtype", [None, torch.bfloat16], ids=["f32-blocks", "bf16-blocks"])
 def test_blocked_matvec_matches_plain_version_on_card(cuda_device, block_dtype):
-    """blocked_matvec (block product, then K1 over the remainder CSR)
-    forward and transpose against its plain version on the card: the same
-    block product, the remainder through K1's plain version, so rtol=atol=1e-4
-    as for K1 in float32. One K1 launch per product."""
-    from gnn_tpu_torch.graphs.blocked import blocked_matvec, blocked_matvec_plain
-
+    """``spmm`` over a cluster adjacency on the card (``block_dtype``
+    builds nothing) runs K1, one launch forward and one for dx, each
+    against K1's plain version over the relabelled CSR and its transpose,
+    rtol=atol=1e-4 as for K1 in float32."""
     adj = _clustered_adjacency(block_dtype).to(cuda_device)
-    assert adj.blocked.num_rem_edges > 0 and adj.blocked.num_dense_edges > 0
-    k1, bm = csr_spmm.launches, blocked_matvec.launches
+    assert adj.layout == "blocked" and adj.perm is not None
     for F in (64, 40):
-        for lay in (adj.blocked, adj.t_blocked):
-            x = torch.randn(adj.num_dst_nodes, F, device=cuda_device)
-            got = blocked_matvec(lay, x)
-            assert got.shape == x.shape and got.dtype == torch.float32
-            torch.testing.assert_close(got, blocked_matvec_plain(lay, x), rtol=1e-4, atol=1e-4)
-    torch.cuda.synchronize()
-    assert (csr_spmm.launches - k1, blocked_matvec.launches - bm) == (4, 4)
+        x = torch.randn(adj.num_dst_nodes, F, device=cuda_device, requires_grad=True)
+        g = torch.randn(adj.num_dst_nodes, F, device=cuda_device)
+        k1 = csr_spmm.launches
+        out = tops.spmm(adj, x)
+        out.backward(g)
+        torch.cuda.synchronize()
+        assert csr_spmm.launches - k1 == 2
+        assert out.dtype == torch.float32
+        torch.testing.assert_close(out, csr_spmm_plain(adj.row_ptr, adj.src, adj.weight, x.detach()),
+                                   rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(x.grad, csr_spmm_plain(adj.t_row_ptr, adj.t_col, adj.t_weight, g),
+                                   rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
 def test_blocked_spmm_backward_on_card_matches_cpu(cuda_device):
-    """The blocked spmm's forward and dx (blocked_matvec over t_blocked) on
-    the card against the CPU path; the CSR K1 on the card agrees too."""
+    """``spmm`` over a cluster adjacency, forward and dx, on the card
+    against the CPU path; the 'segment' backend on the card gives the same
+    bits as 'auto', both K1."""
     adj = _clustered_adjacency()
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(adj.num_dst_nodes, 32)).astype(np.float32))
@@ -712,6 +715,7 @@ def test_blocked_spmm_backward_on_card_matches_cpu(cuda_device):
     for out, grad in outs[1:]:
         torch.testing.assert_close(out, outs[0][0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(grad, outs[0][1], rtol=1e-4, atol=1e-4)
+    assert torch.equal(outs[1][0], outs[2][0]) and torch.equal(outs[1][1], outs[2][1])
 
 
 def _conv_on_card_matches_cpu(make, cuda_device, n=600):

@@ -23,7 +23,7 @@ from gnn_tpu.mp import SAGEConv as JaxSAGEConv
 from gnn_tpu.train import Config as JaxConfig
 from gnn_tpu.train import fit as jax_fit
 from gnn_tpu.train.loop import build_model as jax_build_model
-from gnn_tpu_torch.graphs import stochastic_block_model
+from gnn_tpu_torch.graphs import cluster_order, stochastic_block_model
 from gnn_tpu_torch.graphs.sampling import NeighborSampler
 from gnn_tpu_torch.models import EncoderGCN, GraphSAGE
 from gnn_tpu_torch.mp import GATConv, SAGEConv
@@ -190,7 +190,10 @@ def test_local_blocked_with_another_halo_warns_and_takes_overlap():
     data = stochastic_block_model(num_nodes=64, num_classes=3, seed=5)
     with pytest.warns(UserWarning, match="requires halo='overlap'"):
         step = build_step(cfg, data, build_model(cfg, data.num_features, 3), CPU)
-    assert step.adj.halo == "overlap" and step.adj.block_rows == 8
+    assert step.adj.halo == "overlap" and step.adj.n_max % 8 == 0
+    # the community order in windows of 8 came first
+    perm = cluster_order(data.edge_index.numpy(), data.num_nodes, pack_rows=8)
+    assert torch.equal(step.data.x[: data.num_nodes], data.x[torch.from_numpy(perm)])
     assert step.data.num_nodes == 4 * step.adj.n_max and not step.data.train_mask[data.num_nodes:].any()
 
 

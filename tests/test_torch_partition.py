@@ -4,8 +4,11 @@ package's.
 ``gnn_tpu.parallel.partition_graph(..., num_parts=P)`` needs no mesh and no
 ``shard_map``, so both plans are built here from the same numpy edges and
 compared element for element: ``n_max``, ``h_max``, ``e_max``, ``n_buf``, the
-send tables, the edge-parallel arrays and the ``diag`` blocks, for the three
-halo modes, an uneven node count, a heavy hub and ``local_blocked``.
+send tables and the edge-parallel arrays, for the three halo modes, an
+uneven node count, a heavy hub and ``local_blocked``. The port builds no
+dense blocks under ``local_blocked``: its local intra-window edges stay in
+the local CSR, so with R = 8, whose alignment is the default's, its plan
+equals the JAX plan without ``local_blocked``.
 """
 
 import pathlib
@@ -19,14 +22,14 @@ from gnn_tpu import graphs as jgraphs
 from gnn_tpu.graphs.generate import stochastic_block_model as jax_sbm
 from gnn_tpu.parallel import partition_graph as jax_partition_graph
 from gnn_tpu_torch import native
-from gnn_tpu_torch.parallel import make_mesh, partition_graph
+from gnn_tpu_torch.parallel import make_mesh, partition_graph, shard_node_array, spmm_dist
 from torch_jax_graph_core import jax_graph_core  # noqa: F401  (fixture)
 
 # the JAX package's draws and graph-core results come from its C++ library
 pytestmark = pytest.mark.usefixtures("jax_graph_core")
 
 CPU = torch.device("cpu")
-PLAN = ("send_idx", "t_send_idx", "esrc_coord", "edst_row", "edge_id", "in_degree", "diag")
+PLAN = ("send_idx", "t_send_idx", "esrc_coord", "edst_row", "edge_id", "in_degree")
 
 
 def _graph(kind, rng):
@@ -55,8 +58,9 @@ CASES = [
 def test_partition_plan_equals_jax(rng, halo, P, kind, blocked):
     ei, w, n = _graph(kind, rng)
     got = partition_graph(ei, w, num_nodes=n, num_parts=P, halo=halo, local_blocked=blocked)
-    want = jax_partition_graph(ei, w, num_nodes=n, num_parts=P, halo=halo, local_blocked=blocked)
-    for name in ("num_parts", "n_max", "num_nodes", "halo", "h_max", "e_max", "has_weight", "block_rows", "n_buf"):
+    want = jax_partition_graph(ei, w, num_nodes=n, num_parts=P, halo=halo)
+    assert not hasattr(got, "diag") and not hasattr(got, "block_rows")
+    for name in ("num_parts", "n_max", "num_nodes", "halo", "h_max", "e_max", "has_weight", "n_buf"):
         assert getattr(got, name) == getattr(want, name), name
     for name in PLAN:
         a, b = getattr(got, name), getattr(want, name)
@@ -106,11 +110,44 @@ def test_partition_options_and_errors(rng):
     with pytest.raises(ValueError, match="edge_parallel=False"):
         d.shard_edge_array(np.ones(ei.shape[1]))
     bf16 = partition_graph(ei, w, num_nodes=n, num_parts=2, halo="overlap", local_blocked=8, block_dtype=torch.bfloat16)
-    assert bf16.diag.dtype == torch.bfloat16
+    f32 = partition_graph(ei, w, num_nodes=n, num_parts=2, halo="overlap", local_blocked=8)
+    for name in ("adj", "t_adj", "adj_rem", "t_adj_rem"):  # block_dtype builds nothing
+        a, b = getattr(bf16, name), getattr(f32, name)
+        assert a.weight.dtype == torch.float32 and torch.equal(a.weight, b.weight), name
+        assert torch.equal(a.src, b.src) and torch.equal(a.row_ptr, b.row_ptr), name
     mesh = make_mesh(axes=("data",), devices=[CPU] * 4)
     assert partition_graph(ei, w, num_nodes=n, mesh=mesh).num_parts == 4
     with pytest.raises(ValueError, match="num_parts=2"):
         partition_graph(ei, w, num_nodes=n, num_parts=2, mesh=mesh)
+
+
+LOCAL = [(kind, P) for kind in ("uneven", "hub") for P in (2, 4)]
+
+
+@pytest.mark.parametrize("kind,P", LOCAL, ids=[f"{k}-P{p}" for k, p in LOCAL])
+def test_local_blocked_keeps_every_local_edge_in_the_csr(rng, kind, P):
+    """``halo='overlap', local_blocked=8``: the local CSRs hold every edge
+    whose source the destination's part owns, intra-window ones included,
+    and ``spmm_dist`` with its gradient equals the same partition's
+    without ``local_blocked`` bit for bit."""
+    ei, w, n = _graph(kind, rng)
+    mesh = make_mesh(axes=("data",), devices=[CPU] * P)
+    got = partition_graph(ei, w, num_nodes=n, mesh=mesh, halo="overlap", local_blocked=8)
+    want = partition_graph(ei, w, num_nodes=n, mesh=mesh, halo="overlap")
+    n_max = got.n_max
+    local = int(((ei[0] // n_max) == (ei[1] // n_max)).sum())
+    intra = int(((ei[0] // 8) == (ei[1] // 8)).sum())
+    assert intra > 0 and got.adj.num_edges == got.t_adj.num_edges == local
+    assert got.adj.num_edges + got.adj_rem.num_edges == ei.shape[1]
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=(P * n_max, 16)).astype(np.float32))
+    outs = []
+    for dist in (got, want):
+        x_sh = shard_node_array(dist, x, mesh).requires_grad_()
+        out = spmm_dist(dist, x_sh, mesh)
+        out.backward(g)
+        outs.append((out.detach(), x_sh.grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 def test_shard_unshard_and_edge_arrays(rng):

@@ -54,8 +54,8 @@ def _gat_spans(layers: int, input_dropout: bool) -> dict:
 CASES = {
     # a dropout, K1 forward and K1's transpose in each of 3 layers
     "gcn": (("gcn", 3), {}, {"agg.spmm": 3, "agg.spmm.bwd": 3, "dropout": 3, "optim.step": 1, "optim.zero_grad": 1}),
-    # the blocked layout: its block product in a span of its own, forward and transpose
-    "gcn-blocked": (("gcn", 3), {"reorder": "cluster"}, {"agg.spmm": 3, "agg.spmm.bwd": 3, "blocked_matvec.diag": 6,
+    # the community order: K1 over its CSR as on any other order, no span of a block product
+    "gcn-blocked": (("gcn", 3), {"reorder": "cluster"}, {"agg.spmm": 3, "agg.spmm.bwd": 3,
                                                           "dropout": 3, "optim.step": 1, "optim.zero_grad": 1}),
     "gat": (("gat", 2), {}, _gat_spans(2, input_dropout=True)),
     "gat-sampled": (("gat", 2), {"batch_size": 8, "fanouts": [3, 2]},

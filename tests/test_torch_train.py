@@ -117,9 +117,10 @@ def test_fit_trains_every_model_with_every_optimizer(name, optimizer, clip):
 
 @pytest.mark.parametrize("name", ["encoder_gcn", "sage", "gin"])
 def test_fit_on_the_blocked_layout_matches_the_csr(name):
-    """``train.reorder='cluster'`` with the new models: the same losses as on
-    the CSR at rtol=1e-4 (the relabelling is exact; the blocked product sums
-    in another order). GIN drops the weights of the blocked layouts too."""
+    """``train.reorder='cluster'`` with the new models: the same losses as
+    under the default degree-bucket order at rtol=1e-4 (the relabelling is
+    exact; K1 sums each row in another order). GIN drops the weights of the
+    community-ordered CSR too."""
     hists = []
     for reorder in ("auto", "cluster"):
         cfg = _cfg(**{"model.name": name, "train.reorder": reorder})

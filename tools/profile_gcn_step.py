@@ -14,10 +14,9 @@ mid-block convs, post-MLP; Adam), 2-sage (``--model sage``: GraphSAGE 3 x
 256, mean; Adam) or 2-gin (``--model gin``: GIN 3 x 256; SGD with momentum
 and gradient clipping); ``--reorder`` is ``fit``'s ``train.reorder``:
 ``auto`` (the default) and ``true`` relabel the nodes by degree bucket,
-``false`` keeps the ids, ``cluster`` relabels them and builds the
-cluster-blocked layout. It runs ``fit``'s training step on it:
-the model with dropout -> masked cross entropy, backward, (clipping,) the
-optimizer. ``--batch-size B --fanouts f1,f2,...`` (``--model sage`` or
+``false`` keeps the ids, ``cluster`` relabels them by community. It runs
+``fit``'s training step on it: the model with dropout -> masked cross
+entropy, backward, (clipping,) the optimizer. ``--batch-size B --fanouts f1,f2,...`` (``--model sage`` or
 ``gat``; one layer per fanout) runs ``fit``'s neighbour-sampled step instead
 (both steps come from ``gnn_tpu_torch.train.loop.build_step``, as ``fit``'s do),
 as in ``chip_smoke.py``'s phases 2-sampled-*: seeds drawn on the host, the
@@ -42,9 +41,6 @@ then traces ``--steps`` steps with ``torch.profiler``. It prints:
 - the busy time split into K1, K2, K3 (by the Op in their names), Linear
   (the library's matrix products, by ``gemm`` and its kin in theirs) and
   the rest;
-- with ``--reorder cluster``, the busy time split into the block product
-  (the kernels inside ``blocked_matvec``'s ``blocked_matvec.diag`` range:
-  pad, bmm, cast), the kernels and the rest;
 - with ``--model gat``, the busy time split into the SDDMM ``d ex`` (the
   kernels inside ``_SpmmHeads.backward``'s ``spmm_heads.dw`` range, itemized
   as gathers, multiply and reduce), the kernels and the rest, and K3's time
@@ -92,7 +88,7 @@ CONFIGS = {
     "sage": arxiv_sage_config, "gin": arxiv_gin_config,
 }
 # Substrings of the names of the library's matrix-product kernels (nn.Linear
-# forward, dW and dX; under --reorder cluster the block product too).
+# forward, dW and dX).
 GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas", "gemv")
 
 
@@ -224,8 +220,6 @@ def main(argv=None) -> int:
     for key, (ms, count) in sorted(by_layer.items(), key=lambda kv: -kv[1][0]):
         log(f"layer split: {key}: {ms:.3f} ms/step in {count / args.steps:.1f} launches ({ms / busy:.1%} of busy)")
     splits = []
-    if args.reorder == "cluster":
-        splits.append(("blocked", {"blocked_matvec.diag": lambda name: "block product (pad, bmm, cast)"}))
     if args.model == "gat":
         splits.append(("gat", {"spmm_heads.dw": sddmm_part}))
     if args.parts > 1 and not sampled:
